@@ -1,0 +1,212 @@
+"""Build and load the port's CUDA kernels (nvcc + ctypes).
+
+``load_kernels()`` compiles csrc/kernels.cu with one ``nvcc`` call into a
+shared library with a plain C interface under the package's ``_build/``
+directory (ignored by git), rebuilding whenever a source is newer than
+the library, and loads it with ctypes. The repository's sources are the
+only inputs: the constants header is generated here from the oracle, so
+nothing numeric is typed by hand. ``load_host_check()`` builds the same
+headers with the host C++ compiler into a test-only library.
+
+Nothing here runs at import time, and a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+from snark_bn254_verifier_tpu.oracle import bn254 as bn
+
+from .limbs import FQ, FR, int_to_words
+from .lines import MILLER_BITS
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+CONSTS_HEADER = "bn254_consts.h"
+CUDA_ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+STACK_BYTES = 16384  # per-thread stack for K2-K4's __noinline__ call chains
+
+_P = ctypes.c_void_p
+_N = ctypes.c_longlong
+_I = ctypes.c_int
+
+
+def consts_header() -> str:
+    """The kernels' constants, derived from the oracle: moduli, Montgomery
+    constants (R = 2^256, n0' = -p^-1 mod 2^32), the Fq inversion exponent,
+    Frobenius coefficients (Montgomery form) and the loop bit schedules."""
+
+    def words(v):
+        return ", ".join(f"0x{w:08x}u" for w in int_to_words(v))
+
+    def fq2_words(v):
+        return f"{words(FQ.to_mont_int(v[0]))},\n  {words(FQ.to_mont_int(v[1]))}"
+
+    frob = [
+        fq2_words(bn.fq2_pow(bn.XI, i * (bn.P**power - 1) // 6))
+        for power in (1, 2, 3)
+        for i in range(6)
+    ]
+    twist = [
+        fq2_words(bn.fq2_pow(bn.XI, (bn.P**power - 1) // k))
+        for power in (1, 2)
+        for k in (3, 2)
+    ]
+    x_bits = [int(c) for c in bin(bn.X_PARAM)[2:]]
+    out = [
+        "// Generated by snark_bn254_verifier_tpu_torch/ops/_build.py from",
+        "// oracle/bn254.py. Do not edit.",
+        "#pragma once",
+        f"#define BN_FQ_N0 0x{FQ.n0inv32:08x}u",
+        f"#define BN_FR_N0 0x{FR.n0inv32:08x}u",
+        f"#define BN_FQ_PM2_NBITS {(bn.P - 2).bit_length()}",
+        f"#define BN_MILLER_STEPS {len(MILLER_BITS)}",
+        f"#define BN_X_NBITS {len(x_bits)}",
+        f"BN_CONST uint32_t FQ_MOD[8] = {{{words(bn.P)}}};",
+        f"BN_CONST uint32_t FQ_ONE[8] = {{{words(FQ.r_mod)}}};",
+        f"BN_CONST uint32_t FQ_PM2[8] = {{{words(bn.P - 2)}}};",
+        f"BN_CONST uint32_t FR_MOD[8] = {{{words(bn.R)}}};",
+        f"BN_CONST uint32_t FR_ONE[8] = {{{words(FR.r_mod)}}};",
+        "// gamma_{power,i} = XI^(i (p^power - 1) / 6), power 1..3, i 0..5",
+        "BN_CONST uint32_t FROB_GAMMA[3 * 6 * 2 * 8] = {\n  "
+        + ",\n  ".join(frob) + "};",
+        "// untwist-Frobenius: power 1..2, (XI^((p^k-1)/3), XI^((p^k-1)/2))",
+        "BN_CONST uint32_t TWIST_FROB[2 * 2 * 2 * 8] = {\n  "
+        + ",\n  ".join(twist) + "};",
+        "BN_CONST uint8_t MILLER_BITS[BN_MILLER_STEPS] = {"
+        + ", ".join(map(str, MILLER_BITS)) + "};",
+        "BN_CONST uint8_t X_BITS[BN_X_NBITS] = {"
+        + ", ".join(map(str, x_bits)) + "};",
+    ]
+    return "\n".join(out) + "\n"
+
+
+def _write_consts(build_dir: Path) -> Path:
+    """Write the constants header, keeping its mtime when unchanged."""
+    build_dir.mkdir(parents=True, exist_ok=True)
+    path = build_dir / CONSTS_HEADER
+    text = consts_header()
+    if not path.exists() or path.read_text() != text:
+        path.write_text(text)
+    return path
+
+
+def _stale(lib: Path, inputs) -> bool:
+    if not lib.exists():
+        return True
+    built = lib.stat().st_mtime
+    return any(p.stat().st_mtime > built for p in inputs)
+
+
+def _compile(cmd, lib: Path) -> str:
+    """Run a compiler command that writes ``lib`` via a temporary name, so
+    a concurrent loader never sees a half-written library."""
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(cmd + ["-o", str(tmp)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"kernel build failed ({' '.join(cmd)}):\n{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, lib)
+    return proc.stdout + proc.stderr
+
+
+def find_nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's default prefix
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+@dataclass
+class KernelLib:
+    lib: ctypes.CDLL
+    build_s: float   # seconds spent compiling in this process (0 if cached)
+    build_log: str   # nvcc/ptxas output of that build ("" if cached)
+
+
+@functools.lru_cache(maxsize=None)
+def load_kernels() -> KernelLib:
+    """Build (if stale) and load the CUDA kernel library."""
+    consts = _write_consts(BUILD_DIR)
+    lib_path = BUILD_DIR / "libbn254_kernels.so"
+    sources = sorted(CSRC.glob("*.cu"))
+    inputs = sources + sorted(CSRC.glob("*.cuh")) + [consts]
+    t0 = time.perf_counter()
+    log = ""
+    if _stale(lib_path, inputs):
+        cmd = [
+            find_nvcc(), CUDA_ARCH, "-std=c++17", "-O3", "-shared",
+            "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+            "-I", str(BUILD_DIR), "-I", str(CSRC),
+        ] + [str(s) for s in sources]
+        log = _compile(cmd, lib_path)
+        (BUILD_DIR / "nvcc.log").write_text(log)
+    build_s = time.perf_counter() - t0 if log else 0.0
+    return KernelLib(bind_kernels(lib_path), build_s, log)
+
+
+def bind_kernels(lib_path: Path) -> ctypes.CDLL:
+    """Load a built kernel library and declare its C interface. Each
+    device still needs ``bn_init(STACK_BYTES)`` before its first launch
+    (ops/field_cuda.py::launch)."""
+    lib = ctypes.CDLL(str(lib_path))
+    lib.bn_init.argtypes = [_N]
+    lib.bn_error_string.argtypes = [_I]
+    lib.bn_error_string.restype = ctypes.c_char_p
+    lib.bn_mont_mul.argtypes = [_P, _P, _P, _N, _I, _P]
+    lib.bn_msm_affine.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _N, _P]
+    lib.bn_miller_mixed.argtypes = [_P] * 6 + [_I, _P, _P, _P, _N, _P]
+    lib.bn_final_exp.argtypes = [_P, _P, _N, _P]
+    for fn in ("bn_init", "bn_mont_mul", "bn_msm_affine", "bn_miller_mixed",
+               "bn_final_exp"):
+        getattr(lib, fn).restype = _I
+    return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by an entry point."""
+    if code != 0:
+        msg = lib.bn_error_string(code).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def load_host_check() -> ctypes.CDLL:
+    """Build the kernels' headers with the host C++ compiler into a test
+    library (csrc/host_check.cc) and load it."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError("no host C++ compiler")
+    build_dir = BUILD_DIR / "host"
+    consts = _write_consts(build_dir)
+    lib_path = build_dir / "libbn254_host_check.so"
+    src = CSRC / "host_check.cc"
+    inputs = [src, consts] + sorted(CSRC.glob("*.cuh"))
+    if _stale(lib_path, inputs):
+        _compile([cxx, "-O1", "-std=c++17", "-shared", "-fPIC",
+                  "-I", str(build_dir), "-I", str(CSRC), str(src)], lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.host_mont_mul.argtypes = [_P, _P, _P, _N, _I]
+    lib.host_fq12_mul.argtypes = [_P, _P, _P, _N]
+    lib.host_msm_affine.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _N]
+    lib.host_miller_mixed.argtypes = [_P] * 6 + [_I, _P, _P, _P, _N]
+    lib.host_final_exp.argtypes = [_P, _P, _N]
+    for fn in ("host_mont_mul", "host_fq12_mul", "host_msm_affine",
+               "host_miller_mixed", "host_final_exp"):
+        getattr(lib, fn).restype = _I
+    return lib
