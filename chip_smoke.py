@@ -9,20 +9,31 @@ It builds the port's CUDA kernels from csrc/, then
 
   1. checks each kernel of KERNEL_ENTRY_POINTS against its plain PyTorch
      twin on the card (exact equality: integer field arithmetic) and a few
-     lanes against the oracle, at the main path's shapes (batch 1024, with
-     edge lanes), then on inputs where about half the lanes take the
+     lanes against the oracle, at the batched path's shapes (batch 1024,
+     with edge lanes), then on inputs where about half the lanes take the
      infinity or skip branches (and K2 on 9 points, more than one Straus
-     group), and times kernel and twin, each warm;
-  2. drives the main path, ``Groth16BatchVerifier(vk, device="cuda")`` on a
-     batch of 1024 proofs of the bench vector with bad lanes at fixed
-     positions, checks the exact bool vector and that every kernel was
-     launched, checks a small batch against the CPU run, and times warm
-     batches.
+     group), and times kernel and twin, each warm; then K2 (11 and 1
+     points), K4 and K5 (3 and 2 pairs) at batch one, the single-proof
+     path's shapes, exact against their twins and timed on those inputs;
+  2. drives the batched path, ``Groth16BatchVerifier(vk, device="cuda")``
+     on a batch of 1024 proofs of the bench vector with bad lanes at fixed
+     positions, checks the exact bool vector and that its kernels (K1-K4)
+     were launched, checks a small batch against the CPU run, and times
+     warm batches;
+  3. drives the single-proof path, ``Groth16Verifier.verify`` and
+     ``PlonkVerifier.verify`` with ``device="cuda"``, on a good proof, a
+     wrong input value, a wrong input count, a corrupted proof byte and,
+     for PlonK, a doubled opening proof that fails in the pairing check;
+     each result or exception must equal the oracle backend's, and its
+     kernels (K2, K4, K5) must have been launched; then times warm calls
+     and splits one call into its primitives.
 
-It imports no JAX. It prints the card's name and power limit, one JSON
-line with the kernels' results, and as its last line
-``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
-before that line; without a CUDA device it exits non-zero at once.
+Each path's launch counts are set to 0 just before it is driven and read
+just after; together the paths must launch every kernel. It imports no
+JAX. It prints the card's name and power limit, one JSON line with the
+kernels' results, and as its last line ``{"ok": true, "device": {...}}``.
+Any failure raises and exits non-zero before that line; without a CUDA
+device it exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ import time
 
 BATCH = 1024  # proofs per batch, the batch the repo's bench verifies
 ITERS = 3     # warm slice runs timed
+SINGLE_ITERS = 10  # warm single-proof calls timed, per protocol
 SEED = 0
 SOURCE = "snark_bn254_verifier_tpu_torch/csrc/kernels.cu"
 PALLAS = "snark_bn254_verifier_tpu/ops/"
@@ -44,6 +56,7 @@ REPLACES = {
     "msm_affine": [PALLAS + "pairing_pallas.py:206", PALLAS + "pairing_pallas.py:271"],
     "miller_mixed": [PALLAS + "pairing_pallas.py:99"],
     "final_exp": [PALLAS + "pairing_pallas.py:179", PALLAS + "pairing_pallas.py:191"],
+    "miller_product": [PALLAS + "pairing_pallas.py:84", PALLAS + "pairing_pallas.py:171"],
 }
 
 
@@ -67,12 +80,14 @@ def time_kernel(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_plain(fn):
+def time_plain(fn, warm_up=True):
     """(result, ms) of a plain twin on the card: one warm-up call (torch's
-    lazy CUDA start-up), then one synchronised, timed call."""
+    lazy CUDA start-up; skipped where the twin already ran on the card at
+    another batch), then one synchronised, timed call."""
     import torch
 
-    fn()
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
@@ -148,13 +163,14 @@ def phase_mont_mul(ctx):
             "shape": list(shape)}
 
 
-def msm_inputs(ctx, n, p_inf=0.0, p_zero=0.0):
-    """n G1 points per lane from the pool, each at infinity with
-    probability ``p_inf``, and canonical Fr scalars, each zero with
-    probability ``p_zero``: (pts[j][lane] or None, sc (n, 16, b))."""
+def msm_inputs(ctx, n, p_inf=0.0, p_zero=0.0, b=None):
+    """n G1 points per lane over ``b`` lanes (default the batch) from the
+    pool, each at infinity with probability ``p_inf``, and canonical Fr
+    scalars, each zero with probability ``p_zero``: (pts[j][lane] or None,
+    sc (n, 16, b))."""
     from snark_bn254_verifier_tpu.oracle import bn254 as bn
 
-    b = ctx.batch
+    b = ctx.batch if b is None else b
     pts = [ctx.lanes(ctx.g1_pool, b) for _ in range(n)]
     sc = ctx.rand_limbs(bn.R, (n, b)).transpose(1, 0, 2).copy()  # (n, 16, b)
     for j in range(n):
@@ -165,7 +181,7 @@ def msm_inputs(ctx, n, p_inf=0.0, p_zero=0.0):
     return pts, sc
 
 
-def check_msm(ctx, label, pts, sc, lanes, twin=True):
+def check_msm(ctx, label, pts, sc, lanes, twin=True, warm_up=True):
     """K2 on (pts, sc): all lanes equal to the plain twin (if ``twin``),
     ``lanes`` equal to the oracle. Returns (inputs, max_abs_err, plain ms)."""
     import numpy as np
@@ -185,7 +201,7 @@ def check_msm(ctx, label, pts, sc, lanes, twin=True):
     got = PC.msm_affine(points, scal)
     err, plain_ms = 0, None
     if twin:
-        want, plain_ms = time_plain(lambda: C.msm_affine(points, scal))
+        want, plain_ms = time_plain(lambda: C.msm_affine(points, scal), warm_up)
         err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]),
                   int((got[2] != want[2]).sum().item()))
         require(err == 0, f"msm_affine ({label}) differs from its plain twin")
@@ -198,7 +214,7 @@ def check_msm(ctx, label, pts, sc, lanes, twin=True):
         want_pt = bn.g1_msm([pts[j][lane] for j in keep], [scal_ints[j][k] for j in keep])
         got_pt = None if infs[k] else (xs[k], ys[k])
         require(got_pt == want_pt, f"msm_affine ({label}) lane {lane} != oracle")
-    print(f"K2 msm_affine {label} n={n} B={ctx.batch}: "
+    print(f"K2 msm_affine {label} n={n} B={sc.shape[-1]}: "
           + ("exact vs plain, " if twin else "")
           + f"oracle ok ({len(lanes)} lanes)")
     return (points, scal), err, plain_ms
@@ -233,7 +249,19 @@ def phase_msm_affine(ctx):
     # more points than one Straus group: partial sums are combined
     pts, sc = msm_inputs(ctx, 9, p_inf=0.1)
     check_msm(ctx, "9 points", pts, sc, list(range(0, ctx.batch, ctx.batch // 16)), twin=False)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": [3, 16, ctx.batch]}
+    out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": [3, 16, ctx.batch]}
+    # the single-proof path's shapes, batch one: PlonK's largest MSM (11
+    # points, three groups) and a g1_mul (1 point); timed on the inputs
+    # that were compared
+    for n in (11, 1):
+        pts, sc = msm_inputs(ctx, n, b=1)
+        args, e, out[f"plain_ms_b1_n{n}"] = check_msm(ctx, "single path", pts, sc, [0],
+                                                      warm_up=False)
+        out["max_abs_err"] = max(out["max_abs_err"], e)
+        out[f"ms_b1_n{n}"] = time_kernel(lambda: PC.msm_affine(*args), 3)
+        print(f"K2 msm_affine B=1 n={n}: kernel {out[f'ms_b1_n{n}']:.3f} ms, "
+              f"plain {out[f'plain_ms_b1_n{n}']:.1f} ms")
+    return out
 
 
 def phase_miller_mixed(ctx):
@@ -337,7 +365,114 @@ def phase_final_exp(ctx):
     ms = time_kernel(lambda: PC.final_exp(f), 3)
     print(f"K4 final_exp B={ctx.batch}, {int(bad.sum())} lanes arbitrary: exact vs plain, "
           f"oracle ok ({len(lanes)} lanes); kernel {ms:.3f} ms, plain {plain_ms:.1f} ms (warm)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": [16, 12, ctx.batch]}
+    out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": [16, 12, ctx.batch]}
+    # the single-proof path's shape, batch one: a Miller value of a lane
+    # whose pairs are all finite (K3's lane 4)
+    one = ctx.miller_out[:, :, 4:5].contiguous()
+    got = PC.final_exp(one)
+    want, out["plain_ms_b1"] = time_plain(lambda: PR.final_exp(one), warm_up=False)
+    e = max_abs_err(got, want)
+    require(e == 0, "final_exp (B=1) differs from its plain twin")
+    require(unpack_fq12(got.cpu().numpy())[0]
+            == bn.final_exponentiation(unpack_fq12(one.cpu().numpy())[0]),
+            "final_exp (B=1) != oracle")
+    out["max_abs_err"] = max(err, e)
+    out["ms_b1"] = time_kernel(lambda: PC.final_exp(one), 3)
+    print(f"K4 final_exp B=1: exact vs plain, oracle ok; kernel {out['ms_b1']:.3f} ms, "
+          f"plain {out['plain_ms_b1']:.1f} ms")
+    return out
+
+
+def miller_product_inputs(ctx, n):
+    """n (P, Q) pairs per lane from the pools. About half the lanes put
+    one pair's P or Q at infinity; edge lanes: 0 every P infinite, 1 the
+    first Q infinite, 2 the last P infinite (in the last group for n > 4),
+    3 all finite, 4 the first pair infinite by its mask alone (its
+    coordinates kept: the wrapper must zero them), 5 a pair and its
+    negation on one Q (the product is one). Returns (ps, qs, masked):
+    per-pair lane lists (None = infinity) and the mask-only lanes."""
+    from snark_bn254_verifier_tpu.oracle import bn254 as bn
+
+    b = ctx.batch
+    ps = [ctx.lanes(ctx.g1_pool, b) for _ in range(n)]
+    qs = [ctx.lanes(ctx.g2_pool, b) for _ in range(n)]
+    for lane in range(6, b):
+        if ctx.rng.random() < 0.5:
+            j = int(ctx.rng.integers(0, n))
+            (ps if ctx.rng.random() < 0.5 else qs)[j][lane] = None
+    for j in range(n):
+        ps[j][0] = None
+    qs[0][1] = None
+    ps[n - 1][2] = None
+    if n >= 2:
+        ps[1][5], qs[1][5] = bn.g1_neg(ps[0][5]), qs[0][5]
+    return ps, qs, {(0, 4)}
+
+
+def pack_pair_lanes(ctx, ps, qs, masked):
+    """Per-pair lane lists -> pair-major tensors on the card: P (x, y
+    (n,16,B), inf (n,B)), Q (x, y (n,16,2,B), inf (n,B))."""
+    import torch
+
+    from snark_bn254_verifier_tpu_torch.models.packing import pack_g1, pack_g2, pair_major
+
+    p, q = pair_major(pack_g1, ps), pair_major(pack_g2, qs)
+    for j, lane in masked:
+        p[2][j, lane] = True
+    return (tuple(torch.as_tensor(a, device=ctx.dev) for a in p),
+            tuple(torch.as_tensor(a, device=ctx.dev) for a in q))
+
+
+def phase_miller_product(ctx):
+    from snark_bn254_verifier_tpu.oracle import bn254 as bn
+    from snark_bn254_verifier_tpu_torch.models.packing import unpack_fq12
+    from snark_bn254_verifier_tpu_torch.ops import pairing as PR
+    from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
+
+    b = ctx.batch
+    out = {"max_abs_err": 0, "shape": [3, 16, b]}
+    # n = 3: Groth16's generic product; 2: PlonK's KZG check; 5: two groups
+    for n in (3, 2, 5):
+        ps, qs, masked = miller_product_inputs(ctx, n)
+        P, Q = pack_pair_lanes(ctx, ps, qs, masked)
+        skipping = int((P[2] | Q[2]).any(0).sum().item())
+        got = PC.miller_product(P, Q)
+        if n == 3:
+            want, out["plain_ms"] = time_plain(lambda: PR.miller_product(P, Q))
+        else:
+            want = PR.miller_product(P, Q)
+        err = max_abs_err(got, want)
+        require(err == 0, f"miller_product (n={n}) differs from its plain twin")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        lanes = list(range(8))
+        gt = unpack_fq12(PC.final_exp(got[:, :, lanes]).cpu().numpy())
+        for k, lane in enumerate(lanes):
+            pairs = [(ps[j][lane], qs[j][lane]) for j in range(n)
+                     if ps[j][lane] is not None and qs[j][lane] is not None
+                     and (j, lane) not in masked]
+            require(gt[k] == bn.pairing_batch(pairs),
+                    f"miller_product (n={n}) lane {lane} != oracle after final exp")
+        msg = (f"K5 miller_product n={n} B={b}, {skipping} lanes with an infinite pair: "
+               f"exact vs plain, oracle ok ({len(lanes)} lanes)")
+        if n == 3:
+            out["ms"] = time_kernel(lambda: PC.miller_product(P, Q), 3)
+            msg += f"; kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.1f} ms (warm)"
+        print(msg)
+        if n in (3, 2):
+            # the single-proof path's shape, batch one: lane 3, whose pairs
+            # are all finite; timed on the inputs that were compared
+            one = (tuple(t[..., 3:4].contiguous() for t in P),
+                   tuple(t[..., 3:4].contiguous() for t in Q))
+            got1 = PC.miller_product(*one)
+            want1, out[f"plain_ms_b1_n{n}"] = time_plain(lambda: PR.miller_product(*one),
+                                                         warm_up=False)
+            err = max(max_abs_err(got1, want1), max_abs_err(got1, got[:, :, 3:4]))
+            require(err == 0, f"miller_product (n={n}, B=1) differs from its plain twin")
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            out[f"ms_b1_n{n}"] = time_kernel(lambda: PC.miller_product(*one), 3)
+            print(f"K5 miller_product n={n} B=1 (lane 3): exact vs plain and vs the batch; "
+                  f"kernel {out[f'ms_b1_n{n}']:.3f} ms, plain {out[f'plain_ms_b1_n{n}']:.1f} ms")
+    return out
 
 
 # One on-card phase per entry of KERNEL_ENTRY_POINTS (checked by
@@ -347,7 +482,11 @@ KERNEL_PHASES = {
     "msm_affine": phase_msm_affine,
     "miller_mixed": phase_miller_mixed,
     "final_exp": phase_final_exp,
+    "miller_product": phase_miller_product,
 }
+# The kernels each path launches; together they cover KERNEL_ENTRY_POINTS.
+SLICE_KERNELS = ("mont_mul", "msm_affine", "miller_mixed", "final_exp")
+SINGLE_KERNELS = ("msm_affine", "final_exp", "miller_product")
 
 
 def slice_inputs(batch: int):
@@ -398,8 +537,8 @@ def run_slice(batch: int, iters: int):
     require(ok.tolist() == expected, f"slice bool vector wrong: False at "
             f"{np.flatnonzero(~ok).tolist()}, expected {[i for i, e in enumerate(expected) if not e]}")
     require(ver.last_stats.extra["parser"] == "native", "native parser did not run")
-    for name in PC.KERNEL_ENTRY_POINTS:
-        require(launches[name] > 0, f"kernel {name} was not launched by the main path")
+    for name in SLICE_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched by the batched path")
     print(f"slice B={batch}: bool vector exact ({int(ok.sum())} True), launches {launches}")
 
     # the same small batch on the CPU (plain twins) gives the same answer
@@ -420,6 +559,142 @@ def run_slice(batch: int, iters: int):
     print(f"slice warm: {iters} runs, batch s {[round(t, 4) for t in times]}, "
           f"{batch / best:.1f} proofs/s (best), {batch * iters / sum(times):.1f} proofs/s (mean)")
     print("slice stage ms (mean): " + json.dumps({k: round(v, 3) for k, v in mean_stage.items()}))
+    return launches
+
+
+def outcome(fn):
+    """("ok", result) or ("raises", error class, message) of fn(), for the
+    reference's error taxonomy; any other exception fails the run."""
+    from snark_bn254_verifier_tpu.utils.errors import VerifierError
+
+    try:
+        return ("ok", fn())
+    except VerifierError as e:
+        return ("raises", type(e).__name__, str(e))
+
+
+def single_cases():
+    """(protocol, label, proof, vk, inputs) of the single-proof path: the
+    SP1-shaped Groth16 vector and the synthetic PlonK one, each good, with
+    a wrong input value, a wrong input count and a corrupted proof byte;
+    and a PlonK proof whose opening proof is doubled, which fails in the
+    pairing check on the card."""
+    from snark_bn254_verifier_tpu.fixtures.gen import (
+        gen_groth16_vector_sp1_shaped,
+        gen_plonk_vector,
+    )
+    from snark_bn254_verifier_tpu.oracle import bn254 as bn
+    from snark_bn254_verifier_tpu.utils import serialization as ser
+
+    cases = []
+    for proto, vec in (("groth16", gen_groth16_vector_sp1_shaped(0)),
+                       ("plonk", gen_plonk_vector(0))):
+        ins = list(vec.public_inputs)
+        bad = bytearray(vec.proof)
+        bad[40] ^= 0x01  # inside the first G1 point
+        cases += [
+            (proto, "good", vec.proof, vec.vk, ins),
+            (proto, "wrong input value", vec.proof, vec.vk, [ins[0] + 1] + ins[1:]),
+            (proto, "wrong input count", vec.proof, vec.vk, ins[:-1]),
+            (proto, "corrupted proof byte", bytes(bad), vec.vk, ins),
+        ]
+    h = ser.load_plonk_proof_from_bytes(vec.proof).batched_proof.h
+    doubled = vec.proof.replace(ser.g1_to_bytes(h), ser.g1_to_bytes(bn.g1_mul(h, 2)))
+    require(doubled != vec.proof, "the opening proof was not found in the proof bytes")
+    cases.append(("plonk", "opening proof doubled", doubled, vec.vk, ins))
+    return cases
+
+
+def split_call(proto, proof, vk, inputs):
+    """Host ms of one warm call of the shared protocol code, and of each
+    primitive it made (msm: K2, pairing: K5 + K4, each with its packing
+    and its copy back)."""
+    import torch
+
+    from snark_bn254_verifier_tpu.models.groth16 import PreparedVerifyingKey, verify_groth16
+    from snark_bn254_verifier_tpu.models.plonk import verify_plonk
+    from snark_bn254_verifier_tpu.utils import serialization as ser
+    from snark_bn254_verifier_tpu_torch import TorchBackend
+
+    class TimedBackend(TorchBackend):
+        """Records each primitive's synchronised host ms (g1_mul and
+        pairing go through msm and pairing_batch)."""
+
+        log = []
+
+        def _timed(self, kind, size, fn, *args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            self.log.append((kind, size, (time.perf_counter() - t0) * 1e3))
+            return out
+
+        def msm(self, points, scalars):
+            return self._timed("msm", len(points), super().msm, points, scalars)
+
+        def pairing_batch(self, pairs):
+            return self._timed("pairing", len(pairs), super().pairing_batch, pairs)
+
+        def pairing_batch_is_one(self, pairs):
+            return self._timed("pairing", len(pairs), super().pairing_batch_is_one, pairs)
+
+    tb = TimedBackend("cuda")
+    if proto == "groth16":
+        vk_obj = ser.load_groth16_verifying_key_from_bytes(vk)
+        prepared = PreparedVerifyingKey.from_vk(vk_obj, tb)
+        tb.log.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = verify_groth16(vk_obj, ser.load_groth16_proof_from_bytes(proof), inputs,
+                            backend=tb, prepared=prepared)
+    else:
+        vk_obj = ser.load_plonk_verifying_key_from_bytes(vk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = verify_plonk(vk_obj, ser.load_plonk_proof_from_bytes(proof), inputs, backend=tb)
+    total = (time.perf_counter() - t0) * 1e3
+    require(ok is True, f"{proto}: the split call did not verify")
+    return total, tb.log
+
+
+def run_single(iters: int):
+    """The single-proof path on the card: every case's outcome equal to the
+    oracle backend's, K2/K4/K5 launched, then warm latency."""
+    import statistics
+
+    from snark_bn254_verifier_tpu.models.groth16 import Groth16Verifier as OracleGroth16
+    from snark_bn254_verifier_tpu.models.plonk import PlonkVerifier as OraclePlonk
+    from snark_bn254_verifier_tpu_torch import Groth16Verifier, PlonkVerifier
+    from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
+
+    port = {"groth16": Groth16Verifier, "plonk": PlonkVerifier}
+    oracle = {"groth16": OracleGroth16, "plonk": OraclePlonk}
+    cases = single_cases()
+    PC.reset_launch_counts()
+    got = [outcome(lambda c=c: port[c[0]].verify(*c[2:], device="cuda")) for c in cases]
+    launches = PC.launch_counts()
+    for (proto, label, proof, vk, ins), g in zip(cases, got):
+        want = outcome(lambda: oracle[proto].verify(proof, vk, ins, backend="oracle"))
+        require(g == want, f"single {proto} ({label}): cuda {g} != oracle {want}")
+        print(f"single {proto} ({label}): {g[0]} {g[1]}, equal to the oracle backend")
+    for name in SINGLE_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched by the single-proof path")
+    print(f"single: launches {launches}")
+
+    for proto in ("groth16", "plonk"):
+        _, _, proof, vk, ins = next(c for c in cases if c[0] == proto)
+        times = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            ok = port[proto].verify(proof, vk, ins, device="cuda")
+            times.append((time.perf_counter() - t0) * 1e3)
+            require(ok is True, f"single {proto}: a warm call did not verify")
+        total, log = split_call(proto, proof, vk, ins)
+        prims = ", ".join(f"{k}[{n}] {ms:.3f}" for k, n, ms in log)
+        rest = total - sum(ms for _, _, ms in log)
+        print(f"single {proto} warm latency over {iters} calls: median "
+              f"{statistics.median(times):.3f} ms, best {min(times):.3f} ms; "
+              f"one call split: {total:.3f} ms = {prims}, host protocol code {rest:.3f} ms")
     return launches
 
 
@@ -448,7 +723,12 @@ def main() -> int:
 
     ctx = Ctx(BATCH, SEED)
     results = {name: KERNEL_PHASES[name](ctx) for name in PC.KERNEL_ENTRY_POINTS}
-    launches = run_slice(BATCH, ITERS)
+    slice_launches = run_slice(BATCH, ITERS)
+    single_launches = run_single(SINGLE_ITERS)
+    launches = {name: slice_launches[name] + single_launches[name]
+                for name in PC.KERNEL_ENTRY_POINTS}
+    require(set(SLICE_KERNELS) | set(SINGLE_KERNELS) == set(PC.KERNEL_ENTRY_POINTS),
+            "a kernel is launched by no path")
 
     kernels = [
         {
@@ -462,6 +742,7 @@ def main() -> int:
             "ms": results[name]["ms"],
             "plain_ms": results[name]["plain_ms"],
             "shape": results[name]["shape"],
+            **{k: v for k, v in results[name].items() if "_b1" in k},
         }
         for name in PC.KERNEL_ENTRY_POINTS
     ]

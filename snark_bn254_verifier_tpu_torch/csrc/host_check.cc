@@ -53,4 +53,13 @@ int host_final_exp(const int32_t* f, int32_t* out, long long n) {
   return 0;
 }
 
+int host_miller_product(const int32_t* px, const int32_t* py, const int32_t* qx,
+                        const int32_t* qy, int npairs, int32_t* out,
+                        long long n) {
+  if (npairs < 1) return 1;
+  for (long long i = 0; i < n; ++i)
+    miller_product_lane(px, py, qx, qy, npairs, out, n, i);
+  return 0;
+}
+
 }  // extern "C"

@@ -1,25 +1,31 @@
-// The four CUDA kernels of the batched Groth16 path, for sm_90a, with a
-// plain C interface loaded through ctypes (ops/_build.py).
+// The five CUDA kernels of the port (the batched Groth16 path and the
+// single-proof backend), for sm_90a, with a plain C interface loaded
+// through ctypes (ops/_build.py).
 //
 // Each kernel runs one thread per lane over the port's limb tensors and
 // replaces TPU kernels of snark_bn254_verifier_tpu/ops:
 //
-//   K1 mont_mul      field_pallas.py:37 _mont_kernel
-//   K2 msm_affine    pairing_pallas.py:206 _msm_windowed_kernel
-//                    + pairing_pallas.py:271 _jacobian_combine_kernel
-//   K3 miller_mixed  pairing_pallas.py:99 _miller_mixed_kernel
-//   K4 final_exp     pairing_pallas.py:179 _fe_easy_expx_kernel
-//                    + pairing_pallas.py:191 _fe_combine_kernel
+//   K1 mont_mul        field_pallas.py:37 _mont_kernel
+//   K2 msm_affine      pairing_pallas.py:206 _msm_windowed_kernel
+//                      + pairing_pallas.py:271 _jacobian_combine_kernel
+//   K3 miller_mixed    pairing_pallas.py:99 _miller_mixed_kernel
+//   K4 final_exp       pairing_pallas.py:179 _fe_easy_expx_kernel
+//                      + pairing_pallas.py:191 _fe_combine_kernel
+//   K5 miller_product  pairing_pallas.py:84 _miller_kernel
+//                      + pairing_pallas.py:171 _fq12_product_kernel
 //
-// What bounds them on an H100: K2-K4 do tens of thousands of dependent
+// What bounds them on an H100: K2-K5 do tens of thousands of dependent
 // 32x32->64-bit multiply-adds per lane and touch a few hundred bytes of
 // input, so they are bound by integer issue and latency, and at a batch
 // of 1024 one thread per lane fills only 32 warps of the 132 SMs' 8448
-// warp slots. Their state (Fq12 accumulators, the MSM table) spills to
-// local memory, which stays in L1/L2 at this size. The design keeps the
-// simple form for now: one lane per thread, rolled loops, __noinline__
-// tower products, the MSM table built MSM_GROUP points at a time; nothing
-// is padded, the grid masks the ragged edge.
+// warp slots; at the single-proof backend's batch of one, one thread does
+// all the work. Their state (Fq12 accumulators, the MSM table, K5's four
+// G2 points) spills to local memory, which stays in L1/L2 at this size.
+// The design keeps the simple form for now: one lane per thread, rolled
+// loops, __noinline__ tower products, the MSM table built MSM_GROUP points
+// at a time and K5's pairs MILLER_GROUP at a time on one shared chain
+// (where the TPU ran one grid step per pair and a second kernel for the
+// product); nothing is padded, the grid masks the ragged edge.
 // K1 is a short elementwise pass bound by launch overhead at the mask's
 // sizes. Carry chains in PTX, several threads per lane and a persistent
 // grid are later work.
@@ -28,7 +34,7 @@
 #include "pairing.cuh"
 
 #define BLOCK_LIGHT 256  // K1
-#define BLOCK_HEAVY 32   // K2-K4: one warp per block spreads lanes over SMs
+#define BLOCK_HEAVY 32   // K2-K5: one warp per block spreads lanes over SMs
 
 static inline unsigned grid_for(long long n, int block) {
   return (unsigned)((n + block - 1) / block);
@@ -65,9 +71,16 @@ __global__ void final_exp_kernel(const int32_t* f, int32_t* out, long long n) {
   if (i < n) final_exp_lane(f, out, n, i);
 }
 
+__global__ void miller_product_kernel(const int32_t* px, const int32_t* py,
+                                      const int32_t* qx, const int32_t* qy,
+                                      int npairs, int32_t* out, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) miller_product_lane(px, py, qx, qy, npairs, out, n, i);
+}
+
 extern "C" {
 
-// Per-thread stack for the deep __noinline__ call chains of K2-K4, on the
+// Per-thread stack for the deep __noinline__ call chains of K2-K5, on the
 // runtime's current device.
 int bn_init(long long stack_bytes) {
   cudaDeviceSetLimit(cudaLimitStackSize, (size_t)stack_bytes);
@@ -111,6 +124,16 @@ int bn_miller_mixed(const int32_t* px, const int32_t* py, const int32_t* qx,
 int bn_final_exp(const int32_t* f, int32_t* out, long long n, void* stream) {
   final_exp_kernel<<<grid_for(n, BLOCK_HEAVY), BLOCK_HEAVY, 0,
                      (cudaStream_t)stream>>>(f, out, n);
+  return (int)cudaGetLastError();
+}
+
+int bn_miller_product(const int32_t* px, const int32_t* py, const int32_t* qx,
+                      const int32_t* qy, int npairs, int32_t* out, long long n,
+                      void* stream) {
+  if (npairs < 1) return (int)cudaErrorInvalidValue;
+  miller_product_kernel<<<grid_for(n, BLOCK_HEAVY), BLOCK_HEAVY, 0,
+                          (cudaStream_t)stream>>>(px, py, qx, qy, npairs, out,
+                                                  n);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
-// Per-lane bodies of kernels K3 (mixed Miller product) and K4 (final
-// exponentiation), with the step formulas of ops/pairing.py, so that the
-// Miller output is limb-equal to the plain twin (and to the JAX package's
-// miller_mixed_hostcall), not just equal after the final exponentiation.
+// Per-lane bodies of kernels K3 (mixed Miller product), K4 (final
+// exponentiation) and K5 (Miller product of variable pairs), with the step
+// formulas of ops/pairing.py, so that the Miller outputs are limb-equal to
+// the plain twins (and to the JAX package's miller_mixed_hostcall and
+// miller_product_jit), not just equal after the final exponentiation.
 #pragma once
 
 #include "curve.cuh"
@@ -209,75 +210,129 @@ BN_INLINE void g2_frobenius(fq2& x, fq2& y, const fq2& xq, const fq2& yq,
 
 #define LINE_BLOCK 32  // int32 words of one (16, 2) line coefficient
 
-// One lane of kernel K3. Var pair: px, py (16, n); qx, qy (16, 2, n); or
-// null. Fixed pairs: fpx, fpy (nf, 16, n). lines (nf, 4, STEPS, 16, 2):
-// rows (dbl_c1, dbl_c3, add_c1, add_c3); tails (nf, 2, 2, 16, 2) as
-// (c1/c3, step). Infinity is the all-zero encoding (the wrapper zeroes
-// masked lanes); an infinite pair multiplies by one (e(O,Q) = e(P,O) = 1),
-// through the same calls as the other lanes.
-BN_INLINE void miller_mixed_lane(const int32_t* px, const int32_t* py,
-                                 const int32_t* qx, const int32_t* qy,
-                                 const int32_t* fpx, const int32_t* fpy, int nf,
-                                 const int32_t* lines, const int32_t* tails,
-                                 int32_t* out, int64_t n, int64_t lane) {
-  const bool has_var = px != nullptr;
+// A variable pair of a Miller loop: P = (xp, yp) and Q = (xq, yq) affine,
+// T the running multiple of Q in Jacobian coordinates. ``on`` is false
+// where P or Q is at infinity (the all-zero encoding: the wrappers zero
+// masked lanes); its lines are then (1, 0, 0), through the same calls as
+// the other lanes, so the pair multiplies by one (e(O,Q) = e(P,O) = 1).
+struct var_pair {
   fp xp, yp;
   fq2 xq, yq;
   g2j t;
-  bool var_on = false;
-  if (has_var) {
-    load_fp(xp, px + lane, n);
-    load_fp(yp, py + lane, n);
-    load_fp(xq.c0, qx + lane, 2 * n);
-    load_fp(xq.c1, qx + n + lane, 2 * n);
-    load_fp(yq.c0, qy + lane, 2 * n);
-    load_fp(yq.c1, qy + n + lane, 2 * n);
-    const bool p_inf = fp_is_zero(xp) && fp_is_zero(yp);
-    const bool q_inf = fq2_is_zero(xq) && fq2_is_zero(yq);
-    var_on = !(p_inf || q_inf);
-    t.x = xq;
-    t.y = yq;
-    fq2_one(t.z);
-  }
-  fq12 f;
+  bool on;
+};
+
+// Loads one lane's pair: px, py point at the pair's (16, n) G1
+// coordinates, qx, qy at its (16, 2, n) Fq2 ones.
+BN_INLINE void var_pair_load(var_pair& v, const int32_t* px, const int32_t* py,
+                             const int32_t* qx, const int32_t* qy, int64_t n,
+                             int64_t lane) {
+  load_fp(v.xp, px + lane, n);
+  load_fp(v.yp, py + lane, n);
+  load_fp(v.xq.c0, qx + lane, 2 * n);
+  load_fp(v.xq.c1, qx + n + lane, 2 * n);
+  load_fp(v.yq.c0, qy + lane, 2 * n);
+  load_fp(v.yq.c1, qy + n + lane, 2 * n);
+  const bool p_inf = fp_is_zero(v.xp) && fp_is_zero(v.yp);
+  const bool q_inf = fq2_is_zero(v.xq) && fq2_is_zero(v.yq);
+  v.on = !(p_inf || q_inf);
+  v.t.x = v.xq;
+  v.t.y = v.yq;
+  fq2_one(v.t.z);
+}
+
+// The Miller schedule of f_{6x+2,Q}(P) with its two Frobenius lines, for m
+// variable pairs v[0, m) and nf fixed pairs on one shared f-squaring chain.
+// Fixed pairs: fpx, fpy (nf, 16, n); lines (nf, 4, STEPS, 16, 2) as rows
+// (dbl_c1, dbl_c3, add_c1, add_c3); tails (nf, 2, 2, 16, 2) as (c1/c3,
+// step). In exact arithmetic the shared chain equals the product of the
+// separate Miller loops, and every value is fully reduced, so f is
+// limb-equal to the plain twins (ops/pairing.py).
+BN_INLINE void miller_chain(fq12& f, var_pair* v, int m, const int32_t* fpx,
+                            const int32_t* fpy, int nf, const int32_t* lines,
+                            const int32_t* tails, int64_t n, int64_t lane) {
   fq12_one(f);
   fq2 c0, c1, c3;
   for (int i = 0; i < BN_MILLER_STEPS; ++i) {
     fq12_sq(f, f);
-    if (has_var) {
-      dbl_step(t, c0, c1, c3);
-      mul_by_line(f, c0, c1, c3, xp, yp, var_on);
+    for (int j = 0; j < m; ++j) {
+      dbl_step(v[j].t, c0, c1, c3);
+      mul_by_line(f, c0, c1, c3, v[j].xp, v[j].yp, v[j].on);
     }
     for (int j = 0; j < nf; ++j)
       fixed_pair_apply(f, fpx, fpy, j,
                        lines + ((int64_t)(j * 4) * BN_MILLER_STEPS + i) * LINE_BLOCK,
                        BN_MILLER_STEPS * LINE_BLOCK, n, lane);
     if (!MILLER_BITS[i]) continue;  // add rows are zero where the bit is 0
-    if (has_var) {
-      add_step(t, xq, yq, c0, c1, c3);
-      mul_by_line(f, c0, c1, c3, xp, yp, var_on);
+    for (int j = 0; j < m; ++j) {
+      add_step(v[j].t, v[j].xq, v[j].yq, c0, c1, c3);
+      mul_by_line(f, c0, c1, c3, v[j].xp, v[j].yp, v[j].on);
     }
     for (int j = 0; j < nf; ++j)
       fixed_pair_apply(f, fpx, fpy, j,
                        lines + ((int64_t)(j * 4 + 2) * BN_MILLER_STEPS + i) * LINE_BLOCK,
                        BN_MILLER_STEPS * LINE_BLOCK, n, lane);
   }
-  if (has_var) {
-    // Frobenius corrections: q1 = pi(Q), q2 = -pi^2(Q)
+  // Frobenius corrections: q1 = pi(Q), q2 = -pi^2(Q)
+  for (int j = 0; j < m; ++j) {
     fq2 x1, y1, x2, y2;
-    g2_frobenius(x1, y1, xq, yq, 1);
-    g2_frobenius(x2, y2, xq, yq, 2);
+    g2_frobenius(x1, y1, v[j].xq, v[j].yq, 1);
+    g2_frobenius(x2, y2, v[j].xq, v[j].yq, 2);
     fq2_neg(y2, y2);
-    add_step(t, x1, y1, c0, c1, c3);
-    mul_by_line(f, c0, c1, c3, xp, yp, var_on);
-    add_step(t, x2, y2, c0, c1, c3);
-    mul_by_line(f, c0, c1, c3, xp, yp, var_on);
+    add_step(v[j].t, x1, y1, c0, c1, c3);
+    mul_by_line(f, c0, c1, c3, v[j].xp, v[j].yp, v[j].on);
+    add_step(v[j].t, x2, y2, c0, c1, c3);
+    mul_by_line(f, c0, c1, c3, v[j].xp, v[j].yp, v[j].on);
   }
   for (int k = 0; k < 2; ++k)
     for (int j = 0; j < nf; ++j)
       fixed_pair_apply(f, fpx, fpy, j, tails + ((int64_t)(j * 2) * 2 + k) * LINE_BLOCK,
                        2 * LINE_BLOCK, n, lane);
+}
+
+// One lane of kernel K3: at most one variable pair, px, py (16, n) and qx,
+// qy (16, 2, n), or null; nf fixed pairs from their line tables.
+BN_INLINE void miller_mixed_lane(const int32_t* px, const int32_t* py,
+                                 const int32_t* qx, const int32_t* qy,
+                                 const int32_t* fpx, const int32_t* fpy, int nf,
+                                 const int32_t* lines, const int32_t* tails,
+                                 int32_t* out, int64_t n, int64_t lane) {
+  var_pair v[1];
+  const int m = px != nullptr;
+  if (m) var_pair_load(v[0], px, py, qx, qy, n, lane);
+  fq12 f;
+  miller_chain(f, v, m, fpx, fpy, nf, lines, tails, n, lane);
   store_fq12(out + lane, n, f);
+}
+
+#define MILLER_GROUP 4  // pairs per shared chain: 4 x (T, P, Q) = 1.5 KB of local memory
+
+// One lane of kernel K5: the product over npairs >= 1 variable pairs, px, py
+// (npairs, 16, n) and qx, qy (npairs, 16, 2, n), of their Miller values, as
+// (16, 12, n). Groups of MILLER_GROUP pairs share one chain each; the group
+// values are multiplied together (the work of the TPU's
+// _fq12_product_kernel), so the output is limb-equal to
+// ops/pairing.py::miller_product.
+BN_INLINE void miller_product_lane(const int32_t* px, const int32_t* py,
+                                   const int32_t* qx, const int32_t* qy,
+                                   int npairs, int32_t* out, int64_t n,
+                                   int64_t lane) {
+  var_pair v[MILLER_GROUP];
+  fq12 acc, f;
+  for (int first = 0; first < npairs; first += MILLER_GROUP) {
+    const int m = npairs - first < MILLER_GROUP ? npairs - first : MILLER_GROUP;
+    for (int j = 0; j < m; ++j)
+      var_pair_load(v[j], px + (int64_t)(first + j) * 16 * n,
+                    py + (int64_t)(first + j) * 16 * n,
+                    qx + (int64_t)(first + j) * 32 * n,
+                    qy + (int64_t)(first + j) * 32 * n, n, lane);
+    miller_chain(f, v, m, nullptr, nullptr, 0, nullptr, nullptr, n, lane);
+    if (first == 0)
+      acc = f;
+    else
+      fq12_mul(acc, acc, f);
+  }
+  store_fq12(out + lane, n, acc);
 }
 
 // a^x for the BN parameter x, a in the cyclotomic subgroup (rolled loop).

@@ -4,7 +4,8 @@ The counterpart of snark_bn254_verifier_tpu/models/jax_backend.py:37-100:
 G1 points become (x (16, B), y (16, B), inf (B,)), G2 points Fq2
 coordinates (16, 2, B), Fq12 values (16, 12, B) with component
 6h + 2j + c. Arrays are int32 Montgomery limbs except the canonical Fr
-scalars. Results come back to the host in one copy per array.
+scalars. A device result comes back to the host in one copy: a G1 point's
+x, y and infinity flag are stacked on the device first (``unpack_g1``).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..ops.limbs import FQ, FR
 
@@ -48,6 +50,24 @@ def pack_g2(points) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         np.stack([coord(1, 0), coord(1, 1)], 1),
         inf,
     )
+
+
+def pair_major(pack, lanes) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-pair lane lists of oracle points (``lanes[j][k]``: point j of
+    lane k) -> pair-major (x, y, inf) arrays through ``pack`` (``pack_g1``
+    or ``pack_g2``), the layout of the MSM and Miller-product kernels and
+    of the JAX package's backend (jax_backend.py:162-163, :181-193):
+    G1 (n,16,B), (n,16,B), (n,B); G2 (n,16,2,B), (n,16,2,B), (n,B)."""
+    packed = [pack(lane) for lane in lanes]
+    return tuple(np.stack([a[i] for a in packed]) for i in range(3))
+
+
+def unpack_g1(x: torch.Tensor, y: torch.Tensor, inf: torch.Tensor) -> List:
+    """Affine device result (x (16, B), y (16, B), inf (B,)) -> oracle
+    points (None = infinity), with one device-to-host copy."""
+    both = torch.cat([x, y, inf.to(x.dtype).unsqueeze(0)]).cpu().numpy()
+    xs, ys = unpack_fq(both[:16]), unpack_fq(both[16:32])
+    return [None if both[32, k] else (xs[k], ys[k]) for k in range(len(xs))]
 
 
 def pack_fq12(values) -> np.ndarray:

@@ -32,7 +32,7 @@ CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 CONSTS_HEADER = "bn254_consts.h"
 CUDA_ARCH = "-gencode=arch=compute_90a,code=sm_90a"
-STACK_BYTES = 16384  # per-thread stack for K2-K4's __noinline__ call chains
+STACK_BYTES = 16384  # per-thread stack for K2-K5's __noinline__ call chains
 
 _P = ctypes.c_void_p
 _N = ctypes.c_longlong
@@ -172,8 +172,9 @@ def bind_kernels(lib_path: Path) -> ctypes.CDLL:
     lib.bn_msm_affine.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _N, _P]
     lib.bn_miller_mixed.argtypes = [_P] * 6 + [_I, _P, _P, _P, _N, _P]
     lib.bn_final_exp.argtypes = [_P, _P, _N, _P]
+    lib.bn_miller_product.argtypes = [_P] * 4 + [_I, _P, _N, _P]
     for fn in ("bn_init", "bn_mont_mul", "bn_msm_affine", "bn_miller_mixed",
-               "bn_final_exp"):
+               "bn_final_exp", "bn_miller_product"):
         getattr(lib, fn).restype = _I
     return lib
 
@@ -206,7 +207,8 @@ def load_host_check() -> ctypes.CDLL:
     lib.host_msm_affine.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _N]
     lib.host_miller_mixed.argtypes = [_P] * 6 + [_I, _P, _P, _P, _N]
     lib.host_final_exp.argtypes = [_P, _P, _N]
+    lib.host_miller_product.argtypes = [_P] * 4 + [_I, _P, _N]
     for fn in ("host_mont_mul", "host_fq12_mul", "host_msm_affine",
-               "host_miller_mixed", "host_final_exp"):
+               "host_miller_mixed", "host_final_exp", "host_miller_product"):
         getattr(lib, fn).restype = _I
     return lib

@@ -9,7 +9,7 @@ keep every product below 2^32 and every column sum far below 2^63.
 Every result is fully reduced into [0, modulus), as the JAX package's
 are, so equal values have equal limbs. These functions are the plain
 twin of kernel K1 (csrc/kernels.cu::mont_mul_kernel) and the arithmetic
-under the plain twins of K2-K4; the CPU tests hold them against the JAX
+under the plain twins of K2-K5; the CPU tests hold them against the JAX
 package and the oracle.
 
 Carry chains are resolved without a Python loop over limbs: a carry out

@@ -29,7 +29,7 @@ def _check_limbs(name: str, t: torch.Tensor) -> None:
 
 @functools.lru_cache(maxsize=None)
 def _raise_stack_limit(index: int) -> None:
-    """Give K2-K4's call chains their per-thread stack on device ``index``
+    """Give K2-K5's call chains their per-thread stack on device ``index``
     (the runtime's current device when called)."""
     lib = _build.load_kernels().lib
     _build.check(lib, lib.bn_init(_build.STACK_BYTES), "bn_init")

@@ -1,7 +1,7 @@
-"""Plain PyTorch optimal-ate pairing pieces of the batched Groth16 path.
+"""Plain PyTorch optimal-ate pairing: the plain twins of kernels K3-K5.
 
 The counterpart of snark_bn254_verifier_tpu/ops/pairing.py, limited to
-what the batch verifier runs:
+what the port's verifiers run:
 
   * ``miller_product_mixed`` — the product of Miller loops sharing one
     f-squaring chain: at most one variable pair, whose G2 point steps in
@@ -14,6 +14,11 @@ what the batch verifier runs:
     (pairing.py:324-395 there): easy part, three cyclotomic
     exponentiations by x, then the digit combine. Written as plain Python
     loops over the constant bits. Plain twin of kernel K4.
+  * ``miller_loop`` and ``miller_product`` — one full Miller loop per
+    (P, Q) pair, both points variable, then the Fq12 product over the pair
+    axis (pairing.py:187-234, :406-427 there); the single-proof backend's
+    pairings. Plain twin of kernel K5, limb-equal to the JAX package's
+    ``miller_product_jit``.
 
 All values are (16, C, *batch) limb tensors (see ops/tower.py).
 """
@@ -83,20 +88,21 @@ def _add_step(t, q):
     return (x3, y3, z3), (z3, T.fq2_neg(rr), T.fq2_sub(rxq, yqz3))
 
 
-def _mul_by_line(f, line, xp, yp, skip):
+def _mul_by_line(f, line, xp, yp, skip=None):
     """f * l with l00 = c0*yP, l10 = c1*xP, l11 = c3."""
     c0, c1, c3 = line
     return _mul_by_l(f, T.fq2_mul_fq(c0, yp), T.fq2_mul_fq(c1, xp), c3, skip)
 
 
-def _mul_by_l(f, l00, l10, l11, skip):
-    """f * ((l00, 0, 0) + (l10, l11, 0) w); ``skip`` lanes multiply by one
-    (e(O, Q) = e(P, O) = 1)."""
-    one = T.fq2_one(l00.shape[2:], l00)
-    zero = torch.zeros_like(l00)
-    l00 = F.select(skip, one, l00)
-    l10 = F.select(skip, zero, l10)
-    l11 = F.select(skip, zero, l11)
+def _mul_by_l(f, l00, l10, l11, skip=None):
+    """f * ((l00, 0, 0) + (l10, l11, 0) w); ``skip`` lanes, if given,
+    multiply by one (e(O, Q) = e(P, O) = 1)."""
+    if skip is not None:
+        one = T.fq2_one(l00.shape[2:], l00)
+        zero = torch.zeros_like(l00)
+        l00 = F.select(skip, one, l00)
+        l10 = F.select(skip, zero, l10)
+        l11 = F.select(skip, zero, l11)
     f0, f1 = T.fq12_half(f, 0), T.fq12_half(f, 1)
     a0, a1, a2 = T.fq6_c(f1, 0), T.fq6_c(f1, 1), T.fq6_c(f1, 2)
     b0 = T.fq2_add(T.fq6_c(f0, 0), a0)
@@ -210,6 +216,51 @@ def miller_mixed(var_p, var_q, fixed_ps, lines, tails):
     return miller_product_mixed(var_p, var_q, fixed_ps, lines, tails).to(
         torch.int32
     )
+
+
+def miller_loop(p_affine, q_affine):
+    """f_{6x+2,Q}(P) with the two Frobenius correction lines, per lane.
+
+    p_affine: (x (16, *b), y (16, *b), inf (*b)); q_affine over Fq2
+    coordinates (16, 2, *b). Infinity lanes yield one, selected after the
+    loop as in the JAX package; where a schedule bit is 0 the add step is
+    skipped, which its select discards anyway. Returns (16, 12, *b) int64."""
+    xp, yp = p_affine[0].to(_I64), p_affine[1].to(_I64)
+    q = (q_affine[0].to(_I64), q_affine[1].to(_I64))
+    t = (q[0], q[1], T.fq2_one(q[0].shape[2:], q[0]))
+    f = T.fq12_one(xp.shape[1:], xp)
+    for bit in MILLER_BITS:
+        f = T.fq12_sq(f)
+        t, line = _dbl_step(t)
+        f = _mul_by_line(f, line, xp, yp)
+        if bit:
+            t, line = _add_step(t, q)
+            f = _mul_by_line(f, line, xp, yp)
+    q1 = _g2_frobenius_affine(q, 1)
+    q2x, q2y = _g2_frobenius_affine(q, 2)
+    for qq in (q1, (q2x, T.fq2_neg(q2y))):
+        t, line = _add_step(t, qq)
+        f = _mul_by_line(f, line, xp, yp)
+    return F.select(p_affine[2] | q_affine[2], T.fq12_one(xp.shape[1:], xp), f)
+
+
+def miller_product(pairs_p, pairs_q):
+    """Plain twin of kernel K5: the product over the pair axis of one Miller
+    loop per pair, as (16, 12, *b) int32.
+
+    pairs_p: (x (n,16,*b), y (n,16,*b), inf (n,*b)); pairs_q the same with
+    Fq2 coordinates (n,16,2,*b). As in the JAX package, the pair axis is
+    folded into the batch, so one loop serves every pair."""
+    n = pairs_p[0].shape[0]
+    if n < 1:
+        raise ValueError("miller_product: needs at least one pair")
+    p = (pairs_p[0].movedim(0, 1), pairs_p[1].movedim(0, 1), pairs_p[2])
+    q = (pairs_q[0].movedim(0, 2), pairs_q[1].movedim(0, 2), pairs_q[2])
+    f = miller_loop(p, q)  # (16, 12, n, *b)
+    acc = f[:, :, 0]
+    for i in range(1, n):
+        acc = T.fq12_mul(acc, f[:, :, i])
+    return acc.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,12 @@
-"""Wrappers of kernels K2-K4 (CUDA) and the port's kernel registry.
+"""Wrappers of kernels K2-K5 (CUDA) and the port's kernel registry.
 
 The counterparts of the entry points of
-snark_bn254_verifier_tpu/ops/pairing_pallas.py on the batched Groth16
-path:
+snark_bn254_verifier_tpu/ops/pairing_pallas.py:
 
-  msm_affine    K2, replaces _msm_windowed_kernel + _jacobian_combine_kernel
-  miller_mixed  K3, replaces _miller_mixed_kernel
-  final_exp     K4, replaces _fe_easy_expx_kernel + _fe_combine_kernel
+  msm_affine      K2, replaces _msm_windowed_kernel + _jacobian_combine_kernel
+  miller_mixed    K3, replaces _miller_mixed_kernel
+  final_exp       K4, replaces _fe_easy_expx_kernel + _fe_combine_kernel
+  miller_product  K5, replaces _miller_kernel + _fq12_product_kernel
 
 Each wrapper sends a CPU tensor to its plain twin and a CUDA tensor to
 its kernel, checks device, dtype, shape and contiguity, allocates its
@@ -29,7 +29,8 @@ from .limbs import NUM_LIMBS
 # Every kernel the port launches; tests/test_torch_kernel_registry.py
 # holds it equal to the wrappers with a launch counter and to the phases
 # of chip_smoke.py, so no kernel ships without an on-card check.
-KERNEL_ENTRY_POINTS = ("mont_mul", "msm_affine", "miller_mixed", "final_exp")
+KERNEL_ENTRY_POINTS = ("mont_mul", "msm_affine", "miller_mixed", "final_exp",
+                       "miller_product")
 
 
 def launch_counts() -> dict:
@@ -60,10 +61,12 @@ def _expect(name: str, t: torch.Tensor, shape, dtype=torch.int32):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
-def _zero_masked(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Zero lanes where ``mask`` (batch-shaped) is set: the kernels read
-    infinity from the all-zero encoding."""
-    m = mask.view((1,) * (x.dim() - mask.dim()) + tuple(mask.shape))
+def _zero_masked(x: torch.Tensor, mask: torch.Tensor, lead: int = 0) -> torch.Tensor:
+    """Zero lanes where ``mask`` is set: the kernels read infinity from the
+    all-zero encoding. ``mask`` has x's first ``lead`` axes (the pair axis)
+    followed by its batch axes."""
+    shape = tuple(mask.shape)
+    m = mask.view(shape[:lead] + (1,) * (x.dim() - mask.dim()) + shape[lead:])
     return torch.where(m, torch.zeros_like(x), x).contiguous()
 
 
@@ -155,9 +158,41 @@ def final_exp(f):
     return out
 
 
+def miller_product(pairs_p, pairs_q):
+    """Product over the pair axis of one Miller loop per (P, Q) pair, in
+    the layout of the JAX package's ``miller_product_mega``: pairs_p =
+    (x (n,16,B), y (n,16,B), inf (n,B)) and pairs_q = (x (n,16,2,B),
+    y (n,16,2,B), inf (n,B)), Montgomery limbs. Infinite pairs contribute
+    one. Returns the (16,12,B) int32 Miller value."""
+    px, py, pinf = pairs_p
+    qx, qy, qinf = pairs_q
+    n = px.shape[0]
+    if n < 1:
+        raise ValueError("miller_product: needs at least one pair")
+    if _on_cpu(px, py, pinf, qx, qy, qinf):
+        return PR.miller_product(pairs_p, pairs_q)
+    b = px.shape[-1]
+    _expect("px", px, (n, NUM_LIMBS, b))
+    _expect("py", py, (n, NUM_LIMBS, b))
+    _expect("qx", qx, (n, NUM_LIMBS, 2, b))
+    _expect("qy", qy, (n, NUM_LIMBS, 2, b))
+    _expect("pinf", pinf, (n, b), torch.bool)
+    _expect("qinf", qinf, (n, b), torch.bool)
+    skip = pinf | qinf
+    px, py, qx, qy = (_zero_masked(t, skip, lead=1) for t in (px, py, qx, qy))
+    out = torch.empty((NUM_LIMBS, 12, b), dtype=torch.int32, device=px.device)
+    if b == 0:
+        return out
+    launch(out.device, "bn_miller_product", px.data_ptr(), py.data_ptr(), qx.data_ptr(),
+           qy.data_ptr(), n, out.data_ptr(), b)
+    miller_product.launches += 1
+    return out
+
+
 msm_affine.launches = 0
 miller_mixed.launches = 0
 final_exp.launches = 0
+miller_product.launches = 0
 
 __all__ = ["KERNEL_ENTRY_POINTS", "mont_mul", "msm_affine", "miller_mixed",
-           "final_exp", "launch_counts", "reset_launch_counts"]
+           "final_exp", "miller_product", "launch_counts", "reset_launch_counts"]

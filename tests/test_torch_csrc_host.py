@@ -1,8 +1,9 @@
 """The CUDA kernels' arithmetic, built for the host: csrc/*.cuh compiled by
 the host C++ compiler into a test-only library (csrc/host_check.cc) and run
 lane by lane against the oracle. Covers the 16<->32-bit limb conversion,
-the 32-bit CIOS, the tower, the MSM lane and a final_exp(miller_mixed)
-lane without a card. Skips where no host C++ compiler is installed."""
+the 32-bit CIOS, the tower, the MSM lane, a final_exp(miller_mixed) lane
+and K5's Miller-product lane without a card. Skips where no host C++
+compiler is installed."""
 
 import random
 import shutil
@@ -16,6 +17,7 @@ from snark_bn254_verifier_tpu_torch.models.packing import (
     pack_fq12,
     pack_g1,
     pack_g2,
+    pair_major,
     unpack_fq,
     unpack_fq12,
 )
@@ -166,3 +168,42 @@ def test_miller_mixed_lanes_with_infinite_pairs_equal_plain_twin(lib):
     assert lib.host_miller_mixed(ptr(px), ptr(py), ptr(qx), ptr(qy), ptr(fpx), ptr(fpy),
                                  2, ptr(lines), ptr(tails), ptr(f), 4) == 0
     assert torch.equal(f, want)
+
+
+def test_miller_product_lanes_with_infinite_pairs_equal_plain_twin(lib):
+    """K5's lane for 1, 3 and 5 pairs (5: two groups on two shared chains)
+    is limb-equal to the plain twin's product of separate Miller loops.
+    Infinite pairs go through the same calls with the line (1, 0, 0)."""
+    from snark_bn254_verifier_tpu_torch.ops import pairing as PR
+    from snark_bn254_verifier_tpu_torch.ops import tower as T
+
+    rng = random.Random(57)
+    g1 = [bn.g1_mul(bn.G1_GEN, rng.randrange(1, bn.R)) for _ in range(4)]
+    g2 = [bn.g2_mul(bn.G2_GEN, rng.randrange(1, bn.R)) for _ in range(3)]
+    n, b = 5, 4
+    # lanes: all finite; the first P infinite; the second Q infinite; the
+    # last pair (in the second group) and the third P infinite
+    ps = [[g1[(i + j) % 4] for i in range(b)] for j in range(n)]
+    qs = [[g2[(i + 2 * j) % 3] for i in range(b)] for j in range(n)]
+    ps[0][1] = None
+    qs[1][2] = None
+    ps[4][3] = qs[4][3] = ps[2][3] = None
+    P = tuple(c_tensor(a) for a in pair_major(pack_g1, ps))
+    Q = tuple(c_tensor(a) for a in pair_major(pack_g2, qs))
+    # the twin's per-pair Miller values of all five pairs in one loop; the
+    # products of the first 1, 3 and 5 are those of PR.miller_product
+    f = PR.miller_loop((P[0].movedim(0, 1), P[1].movedim(0, 1), P[2]),
+                       (Q[0].movedim(0, 2), Q[1].movedim(0, 2), Q[2]))
+    # the kernel's inputs: infinite pairs zeroed (as ops/pairing_cuda.py does)
+    skip = P[2] | Q[2]
+    px, py = (c_tensor(torch.where(skip[:, None], 0, t)) for t in P[:2])
+    qx, qy = (c_tensor(torch.where(skip[:, None, None], 0, t)) for t in Q[:2])
+    acc = f[:, :, 0]
+    for k in range(1, n + 1):
+        if k > 1:
+            acc = T.fq12_mul(acc, f[:, :, k - 1])
+        if k not in (1, 3, 5):
+            continue
+        out = torch.empty((16, 12, b), dtype=torch.int32)
+        assert lib.host_miller_product(ptr(px), ptr(py), ptr(qx), ptr(qy), k, ptr(out), b) == 0
+        assert torch.equal(out, acc.to(torch.int32)), k

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on a card: each kernel against its plain PyTorch
-twin on the same CUDA tensors (exact), and the slice on CUDA. Marked
+twin on the same CUDA tensors (exact), the batched slice on CUDA and one
+single-proof facade call on CUDA. Marked
 ``gpu``; every test skips where no CUDA device is present. On a machine
 with one, run ``python -m pytest --noconftest tests/test_torch_gpu.py -m gpu``
 (no JAX needed); chip_smoke.py runs the same checks at the main path's
@@ -13,8 +14,8 @@ import torch
 
 from snark_bn254_verifier_tpu.fixtures.gen import gen_groth16_vector
 from snark_bn254_verifier_tpu.oracle import bn254 as bn
-from snark_bn254_verifier_tpu_torch import Groth16BatchVerifier
-from snark_bn254_verifier_tpu_torch.models.packing import pack_g1, pack_g2
+from snark_bn254_verifier_tpu_torch import Groth16BatchVerifier, Groth16Verifier
+from snark_bn254_verifier_tpu_torch.models.packing import pack_g1, pack_g2, pair_major
 from snark_bn254_verifier_tpu_torch.ops import curve as C
 from snark_bn254_verifier_tpu_torch.ops import field as F
 from snark_bn254_verifier_tpu_torch.ops import lines as LN
@@ -106,4 +107,30 @@ def test_slice_on_cuda(cuda):
     PC.reset_launch_counts()
     ok = Groth16BatchVerifier(vec.vk, device="cuda").verify_batch(proofs, inputs)
     assert ok.tolist() == [i != 3 for i in range(B)]
-    assert all(v > 0 for v in PC.launch_counts().values())
+    launches = PC.launch_counts()
+    assert all(launches[k] > 0 for k in ("mont_mul", "msm_affine", "miller_mixed", "final_exp"))
+
+
+def test_miller_product_kernel_equals_plain(cuda):
+    """K5 for 3 pairs (one shared chain) and 5 (two), with infinite P and
+    Q lanes and a pair infinite by its mask alone."""
+    rng = random.Random(65)
+    g1, g2 = points(rng, 4), [bn.g2_mul(bn.G2_GEN, rng.randrange(1, bn.R)) for _ in range(3)]
+    for n in (3, 5):
+        ps = [[g1[(i + j) % 4] if (i + j) % 5 else None for i in range(B)] for j in range(n)]
+        qs = [[g2[(i * j) % 3] if (i + 2 * j) % 7 else None for i in range(B)] for j in range(n)]
+        p, q = pair_major(pack_g1, ps), pair_major(pack_g2, qs)
+        p[2][0, 1] = True  # infinite by the mask, coordinates kept
+        P, Q = on(cuda, p), on(cuda, q)
+        before = PC.miller_product.launches
+        got = PC.miller_product(P, Q)
+        assert PC.miller_product.launches == before + 1
+        assert torch.equal(got, PR.miller_product(P, Q))
+
+
+def test_groth16_facade_on_cuda(cuda):
+    vec = gen_groth16_vector(0)
+    PC.reset_launch_counts()
+    assert Groth16Verifier.verify(vec.proof, vec.vk, vec.public_inputs, device="cuda") is True
+    launches = PC.launch_counts()
+    assert all(launches[k] > 0 for k in ("msm_affine", "miller_product", "final_exp"))

@@ -1,6 +1,7 @@
-"""The PyTorch port runs where JAX is not installed: importing it and
-building a CPU verifier must not import JAX, and no file of the package
-imports it."""
+"""The PyTorch port runs where JAX is not installed: importing it,
+building a CPU batch verifier, importing the single-proof facades and
+building a CPU TorchBackend must not import JAX, and no file of the
+package imports it."""
 
 import os
 import re
@@ -25,6 +26,12 @@ import snark_bn254_verifier_tpu_torch as port
 from snark_bn254_verifier_tpu.fixtures.gen import gen_groth16_vector
 ver = port.Groth16BatchVerifier(gen_groth16_vector(0).vk, device="cpu")
 ver.line_tables()
+from snark_bn254_verifier_tpu_torch import Groth16Verifier, PlonkVerifier, TorchBackend
+from snark_bn254_verifier_tpu_torch import examples
+from snark_bn254_verifier_tpu.models.backend import get_backend
+backend = TorchBackend("cpu")
+assert get_backend(backend) is backend
+assert backend.msm([], []) is None
 import chip_smoke
 assert set(chip_smoke.KERNEL_PHASES) == set(port.KERNEL_ENTRY_POINTS)
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
