@@ -12,9 +12,11 @@ It builds the port's CUDA kernels from csrc/, then
      lanes against the oracle, at the batched path's shapes (batch 1024,
      with edge lanes), then on inputs where about half the lanes take the
      infinity or skip branches (and K2 on 9 points, more than one Straus
-     group), and times kernel and twin, each warm; then K2 (11 and 1
-     points), K4 and K5 (3 and 2 pairs) at batch one, the single-proof
-     path's shapes, exact against their twins and timed on those inputs;
+     group), and times kernel and twin, each warm; K3 and K4 also at each
+     team shape of TEAM_SHAPES, each exact; then K2 (11 and 1 points), K4
+     and K5 (3 and 2 pairs) at batch one, the single-proof path's shapes,
+     exact against their twins and timed on those inputs; and computes
+     each kernel's bound from the work its twin counts on one lane;
   2. drives the batched path, ``Groth16BatchVerifier(vk, device="cuda")``
      on a batch of 1024 proofs of the bench vector with bad lanes at fixed
      positions, checks the exact bool vector and that its kernels (K1-K4)
@@ -29,9 +31,11 @@ It builds the port's CUDA kernels from csrc/, then
      and splits one call into its primitives.
 
 Each path's launch counts are set to 0 just before it is driven and read
-just after; together the paths must launch every kernel. It imports no
-JAX. It prints the card's name and power limit, one JSON line with the
-kernels' results, and as its last line ``{"ok": true, "device": {...}}``.
+just after; together the paths must launch every kernel. It imports
+neither JAX nor the JAX package. It prints the card's name and power
+limit, one JSON line with the kernels' results (time, bound, share of the
+bound, launches per path, registers, stack, shared bytes, team shape),
+and as its last line ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero before that line; without a CUDA
 device it exits non-zero at once.
 """
@@ -48,7 +52,20 @@ BATCH = 1024  # proofs per batch, the batch the repo's bench verifies
 ITERS = 3     # warm slice runs timed
 SINGLE_ITERS = 10  # warm single-proof calls timed, per protocol
 SEED = 0
-SOURCE = "snark_bn254_verifier_tpu_torch/csrc/kernels.cu"
+CSRC = "snark_bn254_verifier_tpu_torch/csrc/"
+SOURCE = {"mont_mul": CSRC + "fp.cuh", "msm_affine": CSRC + "curve.cuh",
+          "miller_mixed": CSRC + "team.cuh", "final_exp": CSRC + "team.cuh",
+          "miller_product": CSRC + "pairing.cuh"}
+# team shapes (threads per lane, lanes per block) timed for K3 and K4
+TEAM_SHAPES = [(12, 4), (12, 8), (12, 16), (18, 2), (18, 4), (18, 8)]
+# The card's peaks for the bounds (NVIDIA's H100 SXM data sheet, and the
+# CUDA Programming Guide's throughput table for compute capability 9.0: 64
+# 32-bit integer multiply-adds per clock per SM, 132 SMs, 1.98 GHz boost).
+HBM_BYTES_PER_S = 3.35e12
+IMAD_PER_S = 64 * 132 * 1.98e9
+# CIOS on 8 x 32-bit limbs (csrc/fp.cuh::fp_mul): 64 a_i b_j and 64 m p_j
+# wide products, each a lo and a hi multiply-add, and 8 m = t0 n0' products
+IMAD_PER_FP_MUL = 2 * (64 + 64) + 8
 PALLAS = "snark_bn254_verifier_tpu/ops/"
 # kernel -> (TPU kernels it replaces, file:line); the first is "replaces"
 REPLACES = {
@@ -99,6 +116,69 @@ def max_abs_err(a, b) -> int:
     return int((a.to(dtype=b.dtype) - b).abs().max().item()) if a.numel() else 0
 
 
+def count_fp_muls(fn) -> int:
+    """Montgomery products the plain twin makes in fn() on CPU tensors:
+    the work of the per-lane formulas, which the kernels share (K3 and K4
+    compute more products than that on their teams; the bound counts what
+    the function needs)."""
+    from snark_bn254_verifier_tpu_torch.ops import field as F
+
+    real, count = F.mont_mul, [0]
+
+    def counting(spec, a, b):
+        out = real(spec, a, b)
+        count[0] += out[0].numel()
+        return out
+
+    F.mont_mul = counting
+    try:
+        fn()
+    finally:
+        F.mont_mul = real
+    return count[0]
+
+
+def bound(fp_muls: int, nbytes: int) -> dict:
+    """The least time the card could take for ``fp_muls`` Montgomery
+    products reading and writing ``nbytes``: the larger of integer
+    multiply-add issue and device memory."""
+    ops_ms = fp_muls * IMAD_PER_FP_MUL / IMAD_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "fp_muls": fp_muls, "imads": fp_muls * IMAD_PER_FP_MUL, "bytes": nbytes}
+
+
+def lane_cpu(args, lane):
+    """One lane of a kernel's (nested tuple) arguments, on the CPU."""
+    if isinstance(args, (tuple, list)):
+        return type(args)(lane_cpu(a, lane) for a in args)
+    return args[..., lane:lane + 1].contiguous().cpu()
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def sweep_team_shapes(ctx, name, fn, want):
+    """Times ``fn`` on the card at each team shape of TEAM_SHAPES (each
+    output exact against ``want``), then restores the default shape.
+    Returns {"team x lpb": ms}."""
+    from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
+
+    default, out = PC.TEAM_SHAPE[name], {}
+    try:
+        for shape in TEAM_SHAPES:
+            PC.TEAM_SHAPE[name] = shape
+            require(max_abs_err(fn(), want) == 0, f"{name} at team shape {shape} differs")
+            out[f"{shape[0]}x{shape[1]}"] = time_kernel(fn, 3)
+    finally:
+        PC.TEAM_SHAPE[name] = default
+    print(f"{name} team shapes (threads per lane x lanes per block), ms: "
+          + json.dumps({k: round(v, 3) for k, v in out.items()}))
+    return out
+
+
 class Ctx:
     """Shared inputs of the phases: seeded generators and oracle pools."""
 
@@ -106,7 +186,7 @@ class Ctx:
         import numpy as np
         import torch
 
-        from snark_bn254_verifier_tpu.oracle import bn254 as bn
+        from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
 
         self.batch = batch
         self.dev = torch.device("cuda")
@@ -155,12 +235,13 @@ def phase_mont_mul(ctx):
         for x, y, z in zip(limbs_batch_to_ints(fa), limbs_batch_to_ints(fb), limbs_batch_to_ints(fo)):
             require(z == x * y * spec.r_inv % spec.modulus, f"mont_mul[{spec.name}] != oracle")
         ms = time_kernel(lambda: FC.mont_mul(spec, a, b), 50)
-        rows[spec.name] = (tuple(a.shape), err, ms, plain_ms)
+        rows[spec.name] = (tuple(a.shape), err, ms, plain_ms,
+                           bound(a[0].numel(), nbytes(a, b, got)))
         print(f"K1 mont_mul {spec.name} {tuple(a.shape)}: exact vs plain, oracle ok; "
               f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms (warm)")
-    shape, _, ms, plain_ms = rows["fq"]  # kernel and twin at one field and shape
+    shape, _, ms, plain_ms, bnd = rows["fq"]  # kernel and twin at one field and shape
     return {"max_abs_err": max(r[1] for r in rows.values()), "ms": ms, "plain_ms": plain_ms,
-            "shape": list(shape)}
+            "shape": list(shape), **bnd}
 
 
 def msm_inputs(ctx, n, p_inf=0.0, p_zero=0.0, b=None):
@@ -168,7 +249,7 @@ def msm_inputs(ctx, n, p_inf=0.0, p_zero=0.0, b=None):
     pool, each at infinity with probability ``p_inf``, and canonical Fr
     scalars, each zero with probability ``p_zero``: (pts[j][lane] or None,
     sc (n, 16, b))."""
-    from snark_bn254_verifier_tpu.oracle import bn254 as bn
+    from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
 
     b = ctx.batch if b is None else b
     pts = [ctx.lanes(ctx.g1_pool, b) for _ in range(n)]
@@ -187,7 +268,7 @@ def check_msm(ctx, label, pts, sc, lanes, twin=True, warm_up=True):
     import numpy as np
     import torch
 
-    from snark_bn254_verifier_tpu.oracle import bn254 as bn
+    from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
     from snark_bn254_verifier_tpu_torch.models.packing import pack_g1, unpack_fq
     from snark_bn254_verifier_tpu_torch.ops import curve as C
     from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
@@ -221,7 +302,8 @@ def check_msm(ctx, label, pts, sc, lanes, twin=True, warm_up=True):
 
 
 def phase_msm_affine(ctx):
-    from snark_bn254_verifier_tpu.oracle import bn254 as bn
+    from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
+    from snark_bn254_verifier_tpu_torch.ops import curve as C
     from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
     from snark_bn254_verifier_tpu_torch.ops.limbs import FR
 
@@ -241,6 +323,10 @@ def phase_msm_affine(ctx):
         pts[j][5] = None
     args, err, plain_ms = check_msm(ctx, "bench shape", pts, sc, list(range(8)))
     ms = time_kernel(lambda: PC.msm_affine(*args), 3)
+    # lane 8: every point finite, a random scalar each (lanes 0-5 are edges)
+    per_lane = count_fp_muls(lambda: C.msm_affine(*lane_cpu(args, 8)))
+    out_t = PC.msm_affine(*args)
+    bnd = bound(per_lane * ctx.batch, nbytes(*args[0], args[1], *out_t))
     print(f"K2 msm_affine bench shape: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms (warm)")
     # lanes diverge: half the points at infinity, a quarter of the scalars zero
     pts, sc = msm_inputs(ctx, 3, p_inf=0.5, p_zero=0.25)
@@ -249,7 +335,8 @@ def phase_msm_affine(ctx):
     # more points than one Straus group: partial sums are combined
     pts, sc = msm_inputs(ctx, 9, p_inf=0.1)
     check_msm(ctx, "9 points", pts, sc, list(range(0, ctx.batch, ctx.batch // 16)), twin=False)
-    out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": [3, 16, ctx.batch]}
+    out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": [3, 16, ctx.batch],
+           **bnd}
     # the single-proof path's shapes, batch one: PlonK's largest MSM (11
     # points, three groups) and a g1_mul (1 point); timed on the inputs
     # that were compared
@@ -259,6 +346,9 @@ def phase_msm_affine(ctx):
                                                       warm_up=False)
         out["max_abs_err"] = max(out["max_abs_err"], e)
         out[f"ms_b1_n{n}"] = time_kernel(lambda: PC.msm_affine(*args), 3)
+        out[f"bound_ms_b1_n{n}"] = bound(
+            count_fp_muls(lambda: C.msm_affine(*lane_cpu(args, 0))),
+            nbytes(*args[0], args[1]))["bound_ms"]
         print(f"K2 msm_affine B=1 n={n}: kernel {out[f'ms_b1_n{n}']:.3f} ms, "
               f"plain {out[f'plain_ms_b1_n{n}']:.1f} ms")
     return out
@@ -268,7 +358,7 @@ def phase_miller_mixed(ctx):
     import numpy as np
     import torch
 
-    from snark_bn254_verifier_tpu.oracle import bn254 as bn
+    from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
     from snark_bn254_verifier_tpu_torch.models.packing import pack_g1, pack_g2, unpack_fq12
     from snark_bn254_verifier_tpu_torch.ops import lines as LN
     from snark_bn254_verifier_tpu_torch.ops import pairing as PR
@@ -329,16 +419,24 @@ def phase_miller_mixed(ctx):
             ms = time_kernel(lambda: PC.miller_mixed(*args, lines, tails), 3)
             msg += f"; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms (warm)"
             ctx.miller_out = got
+            # lane 4: every pair finite (lanes 0-3 are edges)
+            per_lane = count_fp_muls(
+                lambda: PR.miller_mixed(*lane_cpu(args, 4), lines.cpu(), tails.cpu()))
+            flat = [t for pt in args[:2] for t in pt] + [t for pt in args[2] for t in pt]
+            bnd = bound(per_lane * b, nbytes(*flat, lines, tails, got))
+            sweep = sweep_team_shapes(ctx, "miller_mixed",
+                                      lambda: PC.miller_mixed(*args, lines, tails), want)
         print(msg)
         err = max(err, e)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": [16, 12, b]}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": [16, 12, b],
+            "team_shapes_ms": sweep, **bnd}
 
 
 def phase_final_exp(ctx):
     import numpy as np
     import torch
 
-    from snark_bn254_verifier_tpu.oracle import bn254 as bn
+    from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
     from snark_bn254_verifier_tpu_torch.models.packing import pack_fq12, unpack_fq12
     from snark_bn254_verifier_tpu_torch.ops import pairing as PR
     from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
@@ -365,7 +463,10 @@ def phase_final_exp(ctx):
     ms = time_kernel(lambda: PC.final_exp(f), 3)
     print(f"K4 final_exp B={ctx.batch}, {int(bad.sum())} lanes arbitrary: exact vs plain, "
           f"oracle ok ({len(lanes)} lanes); kernel {ms:.3f} ms, plain {plain_ms:.1f} ms (warm)")
-    out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": [16, 12, ctx.batch]}
+    per_lane = count_fp_muls(lambda: PR.final_exp(lane_cpu(f, 4)))  # the work is data-independent
+    out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": [16, 12, ctx.batch],
+           "team_shapes_ms": sweep_team_shapes(ctx, "final_exp", lambda: PC.final_exp(f), want),
+           **bound(per_lane * ctx.batch, nbytes(f, got))}
     # the single-proof path's shape, batch one: a Miller value of a lane
     # whose pairs are all finite (K3's lane 4)
     one = ctx.miller_out[:, :, 4:5].contiguous()
@@ -378,6 +479,7 @@ def phase_final_exp(ctx):
             "final_exp (B=1) != oracle")
     out["max_abs_err"] = max(err, e)
     out["ms_b1"] = time_kernel(lambda: PC.final_exp(one), 3)
+    out["bound_ms_b1"] = bound(per_lane, nbytes(one, got))["bound_ms"]
     print(f"K4 final_exp B=1: exact vs plain, oracle ok; kernel {out['ms_b1']:.3f} ms, "
           f"plain {out['plain_ms_b1']:.1f} ms")
     return out
@@ -391,7 +493,7 @@ def miller_product_inputs(ctx, n):
     coordinates kept: the wrapper must zero them), 5 a pair and its
     negation on one Q (the product is one). Returns (ps, qs, masked):
     per-pair lane lists (None = infinity) and the mask-only lanes."""
-    from snark_bn254_verifier_tpu.oracle import bn254 as bn
+    from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
 
     b = ctx.batch
     ps = [ctx.lanes(ctx.g1_pool, b) for _ in range(n)]
@@ -424,7 +526,7 @@ def pack_pair_lanes(ctx, ps, qs, masked):
 
 
 def phase_miller_product(ctx):
-    from snark_bn254_verifier_tpu.oracle import bn254 as bn
+    from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
     from snark_bn254_verifier_tpu_torch.models.packing import unpack_fq12
     from snark_bn254_verifier_tpu_torch.ops import pairing as PR
     from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
@@ -456,6 +558,9 @@ def phase_miller_product(ctx):
                f"exact vs plain, oracle ok ({len(lanes)} lanes)")
         if n == 3:
             out["ms"] = time_kernel(lambda: PC.miller_product(P, Q), 3)
+            # lane 3: every pair finite
+            per_lane = count_fp_muls(lambda: PR.miller_product(*lane_cpu((P, Q), 3)))
+            out.update(bound(per_lane * b, nbytes(*P, *Q, got)))
             msg += f"; kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.1f} ms (warm)"
         print(msg)
         if n in (3, 2):
@@ -470,6 +575,9 @@ def phase_miller_product(ctx):
             require(err == 0, f"miller_product (n={n}, B=1) differs from its plain twin")
             out["max_abs_err"] = max(out["max_abs_err"], err)
             out[f"ms_b1_n{n}"] = time_kernel(lambda: PC.miller_product(*one), 3)
+            out[f"bound_ms_b1_n{n}"] = bound(
+                count_fp_muls(lambda: PR.miller_product(*lane_cpu(one, 0))),
+                nbytes(*one[0], *one[1], got1))["bound_ms"]
             print(f"K5 miller_product n={n} B=1 (lane 3): exact vs plain and vs the batch; "
                   f"kernel {out[f'ms_b1_n{n}']:.3f} ms, plain {out[f'plain_ms_b1_n{n}']:.1f} ms")
     return out
@@ -492,7 +600,7 @@ SINGLE_KERNELS = ("msm_affine", "final_exp", "miller_product")
 def slice_inputs(batch: int):
     """The bench vector at ``batch`` proofs with bad lanes at fixed
     positions; all proofs keep one length, so the native parser runs."""
-    from snark_bn254_verifier_tpu.fixtures.gen import gen_groth16_vector
+    from snark_bn254_verifier_tpu_torch.fixtures.gen import gen_groth16_vector
 
     vec = gen_groth16_vector(0, num_inputs=2)
     other = gen_groth16_vector(1, num_inputs=2)
@@ -565,7 +673,7 @@ def run_slice(batch: int, iters: int):
 def outcome(fn):
     """("ok", result) or ("raises", error class, message) of fn(), for the
     reference's error taxonomy; any other exception fails the run."""
-    from snark_bn254_verifier_tpu.utils.errors import VerifierError
+    from snark_bn254_verifier_tpu_torch.utils.errors import VerifierError
 
     try:
         return ("ok", fn())
@@ -579,12 +687,12 @@ def single_cases():
     a wrong input value, a wrong input count and a corrupted proof byte;
     and a PlonK proof whose opening proof is doubled, which fails in the
     pairing check on the card."""
-    from snark_bn254_verifier_tpu.fixtures.gen import (
+    from snark_bn254_verifier_tpu_torch.fixtures.gen import (
         gen_groth16_vector_sp1_shaped,
         gen_plonk_vector,
     )
-    from snark_bn254_verifier_tpu.oracle import bn254 as bn
-    from snark_bn254_verifier_tpu.utils import serialization as ser
+    from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
+    from snark_bn254_verifier_tpu_torch.utils import serialization as ser
 
     cases = []
     for proto, vec in (("groth16", gen_groth16_vector_sp1_shaped(0)),
@@ -605,15 +713,28 @@ def single_cases():
     return cases
 
 
+def oracle_verify(proto, proof, vk, inputs):
+    """The protocol code on the oracle backend: the reference answer."""
+    from snark_bn254_verifier_tpu_torch.models.groth16 import verify_groth16
+    from snark_bn254_verifier_tpu_torch.models.plonk import verify_plonk
+    from snark_bn254_verifier_tpu_torch.utils import serialization as ser
+
+    if proto == "groth16":
+        return verify_groth16(ser.load_groth16_verifying_key_from_bytes(vk),
+                              ser.load_groth16_proof_from_bytes(proof), inputs, backend="oracle")
+    return verify_plonk(ser.load_plonk_verifying_key_from_bytes(vk),
+                        ser.load_plonk_proof_from_bytes(proof), inputs, backend="oracle")
+
+
 def split_call(proto, proof, vk, inputs):
     """Host ms of one warm call of the shared protocol code, and of each
     primitive it made (msm: K2, pairing: K5 + K4, each with its packing
     and its copy back)."""
     import torch
 
-    from snark_bn254_verifier_tpu.models.groth16 import PreparedVerifyingKey, verify_groth16
-    from snark_bn254_verifier_tpu.models.plonk import verify_plonk
-    from snark_bn254_verifier_tpu.utils import serialization as ser
+    from snark_bn254_verifier_tpu_torch.models.groth16 import PreparedVerifyingKey, verify_groth16
+    from snark_bn254_verifier_tpu_torch.models.plonk import verify_plonk
+    from snark_bn254_verifier_tpu_torch.utils import serialization as ser
     from snark_bn254_verifier_tpu_torch import TorchBackend
 
     class TimedBackend(TorchBackend):
@@ -662,27 +783,29 @@ def run_single(iters: int):
     oracle backend's, K2/K4/K5 launched, then warm latency."""
     import statistics
 
-    from snark_bn254_verifier_tpu.models.groth16 import Groth16Verifier as OracleGroth16
-    from snark_bn254_verifier_tpu.models.plonk import PlonkVerifier as OraclePlonk
     from snark_bn254_verifier_tpu_torch import Groth16Verifier, PlonkVerifier
     from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
 
     port = {"groth16": Groth16Verifier, "plonk": PlonkVerifier}
-    oracle = {"groth16": OracleGroth16, "plonk": OraclePlonk}
     cases = single_cases()
     PC.reset_launch_counts()
     got = [outcome(lambda c=c: port[c[0]].verify(*c[2:], device="cuda")) for c in cases]
     launches = PC.launch_counts()
     for (proto, label, proof, vk, ins), g in zip(cases, got):
-        want = outcome(lambda: oracle[proto].verify(proof, vk, ins, backend="oracle"))
+        want = outcome(lambda: oracle_verify(proto, proof, vk, ins))
         require(g == want, f"single {proto} ({label}): cuda {g} != oracle {want}")
         print(f"single {proto} ({label}): {g[0]} {g[1]}, equal to the oracle backend")
     for name in SINGLE_KERNELS:
         require(launches[name] > 0, f"kernel {name} was not launched by the single-proof path")
     print(f"single: launches {launches}")
 
+    per_call = {}
     for proto in ("groth16", "plonk"):
         _, _, proof, vk, ins = next(c for c in cases if c[0] == proto)
+        PC.reset_launch_counts()  # one warm good call's launches
+        require(port[proto].verify(proof, vk, ins, device="cuda") is True,
+                f"single {proto}: a warm call did not verify")
+        per_call[f"{proto}_single"] = PC.launch_counts()
         times = []
         for _ in range(iters):
             t0 = time.perf_counter()
@@ -695,7 +818,32 @@ def run_single(iters: int):
         print(f"single {proto} warm latency over {iters} calls: median "
               f"{statistics.median(times):.3f} ms, best {min(times):.3f} ms; "
               f"one call split: {total:.3f} ms = {prims}, host protocol code {rest:.3f} ms")
-    return launches
+    print(f"single: launches per warm call {per_call}")
+    return launches, per_call
+
+
+def kernel_attrs(lib) -> dict:
+    """Registers, stack (local) bytes and shared bytes per thread block of
+    each kernel, from cudaFuncGetAttributes; K3 and K4 at their team shape."""
+    import ctypes
+
+    from snark_bn254_verifier_tpu_torch.ops import _build
+    from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
+
+    out = {}
+    for name in PC.KERNEL_ENTRY_POINTS:
+        vals = (ctypes.c_int * 4)()
+        if name in PC.TEAM_SHAPE:
+            team, lpb = PC.TEAM_SHAPE[name]
+            code = getattr(lib, f"bn_{name}_attrs_t{team}")(lpb, vals)
+        else:
+            code = getattr(lib, f"bn_{name}_attrs")(vals)
+        _build.check(lib, code, f"bn_{name}_attrs")
+        out[name] = {"registers": vals[0], "stack_bytes": vals[1],
+                     "shared_bytes_per_block": vals[2] + vals[3]}
+        if name in PC.TEAM_SHAPE:
+            out[name]["team"] = {"threads_per_lane": team, "lanes_per_block": lpb}
+    return out
 
 
 def main() -> int:
@@ -717,32 +865,42 @@ def main() -> int:
     kl = _build.load_kernels()
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {kl.build_s:.1f} s)")
     for line in kl.build_log.splitlines():
-        if "Compiling entry" in line or "Used" in line:
+        if "Compiling entry" in line or "Used" in line or "done after" in line:
             print("  " + line.strip())
     require(set(KERNEL_PHASES) == set(PC.KERNEL_ENTRY_POINTS), "a kernel has no phase")
 
     ctx = Ctx(BATCH, SEED)
     results = {name: KERNEL_PHASES[name](ctx) for name in PC.KERNEL_ENTRY_POINTS}
     slice_launches = run_slice(BATCH, ITERS)
-    single_launches = run_single(SINGLE_ITERS)
+    single_launches, per_call = run_single(SINGLE_ITERS)
+    per_call["slice"] = slice_launches  # one call of verify_batch
     launches = {name: slice_launches[name] + single_launches[name]
                 for name in PC.KERNEL_ENTRY_POINTS}
     require(set(SLICE_KERNELS) | set(SINGLE_KERNELS) == set(PC.KERNEL_ENTRY_POINTS),
             "a kernel is launched by no path")
 
+    attrs = kernel_attrs(kl.lib)
     kernels = [
         {
             "name": name,
             "route": "cuda",
-            "source": SOURCE,
+            "source": SOURCE[name],
             "replaces": REPLACES[name][0],
             "also_replaces": REPLACES[name][1:],
             "launches": launches[name],
+            "launches_per_call": {path: n[name] for path, n in per_call.items()},
             "max_abs_err": results[name]["max_abs_err"],
             "ms": results[name]["ms"],
             "plain_ms": results[name]["plain_ms"],
-            "shape": results[name]["shape"],
-            **{k: v for k, v in results[name].items() if "_b1" in k},
+            "bound_ms": results[name]["bound_ms"],
+            "bound_by": results[name]["bound_by"],
+            "share_of_bound": results[name]["bound_ms"] / results[name]["ms"],
+            # no PyTorch call computes a Montgomery product, an MSM over
+            # BN254, a Miller loop or a final exponentiation
+            "library_ms": None,
+            **attrs[name],
+            **{k: v for k, v in results[name].items()
+               if k not in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
         }
         for name in PC.KERNEL_ENTRY_POINTS
     ]

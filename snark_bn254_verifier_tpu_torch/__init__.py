@@ -4,9 +4,10 @@ The JAX package ``snark_bn254_verifier_tpu`` beside this one is the
 reference: every module here names its counterpart there, keeps its
 ``(16, *batch)`` 16-bit-limb layout at the public functions, and is held
 against it bit for bit by tests/test_torch_*.py. This package imports
-``torch`` and never JAX; from the JAX package it uses only the JAX-free
-host modules (oracle, serialization, native parser, errors, profiling,
-fixtures, and the protocol logic of models/{groth16,plonk,kzg,backend}).
+``torch`` and never JAX, and nothing of the JAX package: it keeps its own
+copies of the host modules it needs (oracle/, utils/, fixtures/, the
+protocol code in models/{groth16,plonk,kzg,backend}.py, and the native
+parser in csrc/host/), in the JAX package's structure and names.
 
     from snark_bn254_verifier_tpu_torch import Groth16Verifier, PlonkVerifier
     ok = Groth16Verifier.verify(proof, vk, public_inputs, device="cuda")

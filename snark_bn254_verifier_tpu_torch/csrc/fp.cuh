@@ -18,8 +18,8 @@
 
 #if defined(__CUDACC__)
 #define BN_INLINE __device__ __forceinline__
-#define BN_NOINLINE __device__ __noinline__
-#define BN_CONST __constant__
+#define BN_NOINLINE static __device__ __noinline__  // one copy per compiled source
+#define BN_CONST static __constant__  // one copy per compiled source
 #define BN_LDG(p) __ldg(p)
 #else
 #define BN_INLINE static inline
@@ -139,7 +139,8 @@ BN_INLINE void fp_dbl(fp& r, const fp& a) {
 
 // CIOS Montgomery product a * b * 2^-256 mod modulus with n0' = -p^-1 mod
 // 2^32. Every step stays below 2^64: t + a_i*b_j + c <= 2^64 - 1. r may
-// alias a or b: it is written only after the last read.
+// alias a or b: it is written only after the last read. (A PTX form with
+// mad.lo.cc / madc.hi.cc carry chains ran slower on the H100: PERF.md.)
 template <int F>
 BN_INLINE void fp_mul(fp& r, const fp& a, const fp& b) {
   uint32_t t[NW + 2];

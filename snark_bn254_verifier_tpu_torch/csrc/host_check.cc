@@ -1,9 +1,33 @@
-// Host build of the kernels' per-lane code, for the CPU tests only
-// (tests/test_torch_csrc_host.py): the same headers as kernels.cu, run
-// lane by lane on the host, so the 16<->32-bit limb conversion, the CIOS
-// and the tower/curve/pairing formulas are checked without a card. The
-// main path never loads this library.
-#include "pairing.cuh"
+// Host build of the kernels' code, for the CPU tests only
+// (tests/test_torch_csrc_host.py): the same headers as kernels.cu, run on
+// the host, so the 16<->32-bit limb conversion, the CIOS and the
+// tower/curve/pairing formulas are checked without a card. The per-lane
+// kernels (K1, K2, K5) run lane by lane; the team kernels (K3, K4) run
+// block by block, each thread of a block as a host thread, meeting at a
+// barrier wherever the card's threads meet at __syncthreads. The main path
+// never loads this library.
+#include <thread>
+#include <vector>
+
+#include "team.cuh"
+
+// Runs body(tid, block, smem) for every thread of the grid of a team
+// kernel over n lanes, one block at a time.
+template <typename Body>
+static void host_team_grid(long long n, int team, int lpb, long long smem_bytes, Body body) {
+  const int nthreads = team * lpb;
+  std::vector<uint32_t> smem(smem_bytes / 4 + 1);
+  for (long long block = 0; block * lpb < n; ++block) {
+    std::barrier<> bar(nthreads);
+    std::vector<std::thread> threads;
+    for (int tid = 0; tid < nthreads; ++tid)
+      threads.emplace_back([&, tid] {
+        team_barrier = &bar;
+        body(tid, block, smem.data());
+      });
+    for (auto& th : threads) th.join();
+  }
+}
 
 extern "C" {
 
@@ -39,17 +63,33 @@ int host_msm_affine(const int32_t* px, const int32_t* py, const uint8_t* pinf,
   return 0;
 }
 
+// team: 12 or 18 (the sizes the kernel library builds).
 int host_miller_mixed(const int32_t* px, const int32_t* py, const int32_t* qx,
                       const int32_t* qy, const int32_t* fpx, const int32_t* fpy,
                       int nf, const int32_t* lines, const int32_t* tails,
-                      int32_t* out, long long n) {
-  for (long long i = 0; i < n; ++i)
-    miller_mixed_lane(px, py, qx, qy, fpx, fpy, nf, lines, tails, out, n, i);
+                      int32_t* out, long long n, int team, int lpb) {
+  if (nf < 0 || nf > NF_MAX || (team != 12 && team != 18) || lpb < 1) return 1;
+  host_team_grid(n, team, lpb, miller_mixed_smem_bytes(nf, lpb),
+                 [&](int tid, long long block, uint32_t* smem) {
+                   if (team == 12)
+                     miller_mixed_team<12>(tid, block, lpb, smem, px, py, qx, qy, fpx, fpy,
+                                           nf, lines, tails, out, n);
+                   else
+                     miller_mixed_team<18>(tid, block, lpb, smem, px, py, qx, qy, fpx, fpy,
+                                           nf, lines, tails, out, n);
+                 });
   return 0;
 }
 
-int host_final_exp(const int32_t* f, int32_t* out, long long n) {
-  for (long long i = 0; i < n; ++i) final_exp_lane(f, out, n, i);
+int host_final_exp(const int32_t* f, int32_t* out, long long n, int team, int lpb) {
+  if ((team != 12 && team != 18) || lpb < 1) return 1;
+  host_team_grid(n, team, lpb, final_exp_smem_bytes(lpb),
+                 [&](int tid, long long block, uint32_t* smem) {
+                   if (team == 12)
+                     final_exp_team<12>(tid, block, lpb, smem, f, out, n);
+                   else
+                     final_exp_team<18>(tid, block, lpb, smem, f, out, n);
+                 });
   return 0;
 }
 

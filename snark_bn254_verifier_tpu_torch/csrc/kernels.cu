@@ -1,9 +1,7 @@
-// The five CUDA kernels of the port (the batched Groth16 path and the
-// single-proof backend), for sm_90a, with a plain C interface loaded
-// through ctypes (ops/_build.py).
-//
-// Each kernel runs one thread per lane over the port's limb tensors and
-// replaces TPU kernels of snark_bn254_verifier_tpu/ops:
+// The per-lane CUDA kernels of the port (K1, K2, K5) and the runtime
+// set-up, for sm_90a, with a plain C interface loaded through ctypes
+// (ops/_build.py); K3 and K4 are built from team_kernels.cu. The five
+// kernels replace TPU kernels of snark_bn254_verifier_tpu/ops:
 //
 //   K1 mont_mul        field_pallas.py:37 _mont_kernel
 //   K2 msm_affine      pairing_pallas.py:206 _msm_windowed_kernel
@@ -16,25 +14,21 @@
 //
 // What bounds them on an H100: K2-K5 do tens of thousands of dependent
 // 32x32->64-bit multiply-adds per lane and touch a few hundred bytes of
-// input, so they are bound by integer issue and latency, and at a batch
-// of 1024 one thread per lane fills only 32 warps of the 132 SMs' 8448
-// warp slots; at the single-proof backend's batch of one, one thread does
-// all the work. Their state (Fq12 accumulators, the MSM table, K5's four
-// G2 points) spills to local memory, which stays in L1/L2 at this size.
-// The design keeps the simple form for now: one lane per thread, rolled
-// loops, __noinline__ tower products, the MSM table built MSM_GROUP points
-// at a time and K5's pairs MILLER_GROUP at a time on one shared chain
-// (where the TPU ran one grid step per pair and a second kernel for the
-// product); nothing is padded, the grid masks the ragged edge.
-// K1 is a short elementwise pass bound by launch overhead at the mask's
-// sizes. Carry chains in PTX, several threads per lane and a persistent
-// grid are later work.
+// input, so they are bound by integer issue and latency. K2 and K5 keep
+// the simple form: one lane per thread, rolled loops, __noinline__ tower
+// products, the MSM table built MSM_GROUP points at a time and K5's pairs
+// MILLER_GROUP at a time on one shared chain; at a batch of 1024 they fill
+// 32 warps of the 132 SMs. K3 and K4 split each lane's Fq12 products over
+// a team of 12 or 18 threads, keep the lane's state in shared memory and
+// the products in registers, and stage K3's line tables once per block
+// (team.cuh). Nothing is padded; the grid masks the ragged edge. K1 is a
+// short elementwise pass bound by launch overhead at the mask's sizes.
 #include <cuda_runtime.h>
 
 #include "pairing.cuh"
 
 #define BLOCK_LIGHT 256  // K1
-#define BLOCK_HEAVY 32   // K2-K5: one warp per block spreads lanes over SMs
+#define BLOCK_HEAVY 32   // K2, K5: one warp per block spreads lanes over SMs
 
 static inline unsigned grid_for(long long n, int block) {
   return (unsigned)((n + block - 1) / block);
@@ -55,22 +49,6 @@ __global__ void msm_affine_kernel(const int32_t* px, const int32_t* py,
   if (i < n) msm_affine_lane(px, py, pinf, sc, npts, ox, oy, oinf, n, i);
 }
 
-__global__ void miller_mixed_kernel(const int32_t* px, const int32_t* py,
-                                    const int32_t* qx, const int32_t* qy,
-                                    const int32_t* fpx, const int32_t* fpy,
-                                    int nf, const int32_t* lines,
-                                    const int32_t* tails, int32_t* out,
-                                    long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n)
-    miller_mixed_lane(px, py, qx, qy, fpx, fpy, nf, lines, tails, out, n, i);
-}
-
-__global__ void final_exp_kernel(const int32_t* f, int32_t* out, long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) final_exp_lane(f, out, n, i);
-}
-
 __global__ void miller_product_kernel(const int32_t* px, const int32_t* py,
                                       const int32_t* qx, const int32_t* qy,
                                       int npairs, int32_t* out, long long n) {
@@ -80,8 +58,8 @@ __global__ void miller_product_kernel(const int32_t* px, const int32_t* py,
 
 extern "C" {
 
-// Per-thread stack for the deep __noinline__ call chains of K2-K5, on the
-// runtime's current device.
+// Per-thread stack for the deep __noinline__ call chains of K2, K5 and
+// K4's inverse, on the runtime's current device.
 int bn_init(long long stack_bytes) {
   cudaDeviceSetLimit(cudaLimitStackSize, (size_t)stack_bytes);
   return (int)cudaGetLastError();
@@ -111,22 +89,6 @@ int bn_msm_affine(const int32_t* px, const int32_t* py, const uint8_t* pinf,
   return (int)cudaGetLastError();
 }
 
-int bn_miller_mixed(const int32_t* px, const int32_t* py, const int32_t* qx,
-                    const int32_t* qy, const int32_t* fpx, const int32_t* fpy,
-                    int nf, const int32_t* lines, const int32_t* tails,
-                    int32_t* out, long long n, void* stream) {
-  miller_mixed_kernel<<<grid_for(n, BLOCK_HEAVY), BLOCK_HEAVY, 0,
-                        (cudaStream_t)stream>>>(px, py, qx, qy, fpx, fpy, nf,
-                                                lines, tails, out, n);
-  return (int)cudaGetLastError();
-}
-
-int bn_final_exp(const int32_t* f, int32_t* out, long long n, void* stream) {
-  final_exp_kernel<<<grid_for(n, BLOCK_HEAVY), BLOCK_HEAVY, 0,
-                     (cudaStream_t)stream>>>(f, out, n);
-  return (int)cudaGetLastError();
-}
-
 int bn_miller_product(const int32_t* px, const int32_t* py, const int32_t* qx,
                       const int32_t* qy, int npairs, int32_t* out, long long n,
                       void* stream) {
@@ -136,5 +98,22 @@ int bn_miller_product(const int32_t* px, const int32_t* py, const int32_t* qx,
                                                   n);
   return (int)cudaGetLastError();
 }
+
+// Registers, local (stack) bytes, static and dynamic shared bytes of a
+// kernel, for the report of chip_smoke.py (K1 at Fq).
+static int attrs(const void* kernel, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = 0;
+  return 0;
+}
+
+int bn_mont_mul_attrs(int* out) { return attrs((const void*)mont_mul_kernel<FQ>, out); }
+int bn_msm_affine_attrs(int* out) { return attrs((const void*)msm_affine_kernel, out); }
+int bn_miller_product_attrs(int* out) { return attrs((const void*)miller_product_kernel, out); }
 
 }  // extern "C"

@@ -1,8 +1,8 @@
-// Per-lane bodies of kernels K3 (mixed Miller product), K4 (final
-// exponentiation) and K5 (Miller product of variable pairs), with the step
-// formulas of ops/pairing.py, so that the Miller outputs are limb-equal to
-// the plain twins (and to the JAX package's miller_mixed_hostcall and
-// miller_product_jit), not just equal after the final exponentiation.
+// Per-lane body of kernel K5 (Miller product of variable pairs), with the
+// step formulas of ops/pairing.py, so that its output is limb-equal to the
+// plain twin (and to the JAX package's miller_product_jit), not just equal
+// after the final exponentiation. K3 and K4 run on a team of threads per
+// lane (team.cuh) and share the line helpers and the pair load here.
 #pragma once
 
 #include "curve.cuh"
@@ -155,43 +155,6 @@ BN_NOINLINE void add_step(g2j& t, const fq2& xq, const fq2& yq, fq2& c0,
   fq2_sub(c3, rxq, yqz3);
 }
 
-// Precomputed affine line (c0 == 1) of a fixed pair: l00 = (yP, 0),
-// l10 = c1 xP, l11 = c3. ``row`` points at a (c1, c3) pair of (16, 2)
-// int32 limb blocks in global memory, read through the read-only path.
-BN_INLINE void load_fq2_row(fq2& r, const int32_t* row) {
-  for (int k = 0; k < NW; ++k) {
-    for (int c = 0; c < 2; ++c) {
-      const uint32_t lo = (uint32_t)BN_LDG(row + (2 * k) * 2 + c);
-      const uint32_t hi = (uint32_t)BN_LDG(row + (2 * k + 1) * 2 + c);
-      (c ? r.c1 : r.c0).w[k] = (lo & 0xFFFFu) | (hi << 16);
-    }
-  }
-}
-
-// P at infinity (the all-zero encoding) leaves f as it is.
-BN_INLINE void fixed_line_apply(fq12& f, const int32_t* c1row,
-                                const int32_t* c3row, const fp& xp,
-                                const fp& yp) {
-  fq2 c1, l00, l10, l11;
-  load_fq2_row(c1, c1row);
-  load_fq2_row(l11, c3row);
-  l00.c0 = yp;
-  fp_zero(l00.c1);
-  fq2_mul_fq(l10, c1, xp);
-  line_or_one(l00, l10, l11, !(fp_is_zero(xp) && fp_is_zero(yp)));
-  mul_by_l(f, l00, l10, l11);
-}
-
-// Fixed pair j's line from ``rows`` (row block of its table) at P_j.
-BN_INLINE void fixed_pair_apply(fq12& f, const int32_t* fpx,
-                                const int32_t* fpy, int j, const int32_t* row,
-                                int64_t row_stride, int64_t n, int64_t lane) {
-  fp x, y;
-  load_fp(x, fpx + (int64_t)j * 16 * n + lane, n);
-  load_fp(y, fpy + (int64_t)j * 16 * n + lane, n);
-  fixed_line_apply(f, row, row + row_stride, x, y);
-}
-
 BN_INLINE void g2_frobenius(fq2& x, fq2& y, const fq2& xq, const fq2& yq,
                             int power) {
   fq2 gx, gy;
@@ -207,8 +170,6 @@ BN_INLINE void g2_frobenius(fq2& x, fq2& y, const fq2& xq, const fq2& yq,
   fq2_mul(x, x, gx);
   fq2_mul(y, y, gy);
 }
-
-#define LINE_BLOCK 32  // int32 words of one (16, 2) line coefficient
 
 // A variable pair of a Miller loop: P = (xp, yp) and Q = (xq, yq) affine,
 // T the running multiple of Q in Jacobian coordinates. ``on`` is false
@@ -242,15 +203,11 @@ BN_INLINE void var_pair_load(var_pair& v, const int32_t* px, const int32_t* py,
 }
 
 // The Miller schedule of f_{6x+2,Q}(P) with its two Frobenius lines, for m
-// variable pairs v[0, m) and nf fixed pairs on one shared f-squaring chain.
-// Fixed pairs: fpx, fpy (nf, 16, n); lines (nf, 4, STEPS, 16, 2) as rows
-// (dbl_c1, dbl_c3, add_c1, add_c3); tails (nf, 2, 2, 16, 2) as (c1/c3,
-// step). In exact arithmetic the shared chain equals the product of the
-// separate Miller loops, and every value is fully reduced, so f is
-// limb-equal to the plain twins (ops/pairing.py).
-BN_INLINE void miller_chain(fq12& f, var_pair* v, int m, const int32_t* fpx,
-                            const int32_t* fpy, int nf, const int32_t* lines,
-                            const int32_t* tails, int64_t n, int64_t lane) {
+// variable pairs v[0, m) on one shared f-squaring chain (kernel K5). In
+// exact arithmetic the shared chain equals the product of the separate
+// Miller loops, and every value is fully reduced, so f is limb-equal to the
+// plain twins (ops/pairing.py).
+BN_INLINE void miller_chain(fq12& f, var_pair* v, int m) {
   fq12_one(f);
   fq2 c0, c1, c3;
   for (int i = 0; i < BN_MILLER_STEPS; ++i) {
@@ -259,19 +216,11 @@ BN_INLINE void miller_chain(fq12& f, var_pair* v, int m, const int32_t* fpx,
       dbl_step(v[j].t, c0, c1, c3);
       mul_by_line(f, c0, c1, c3, v[j].xp, v[j].yp, v[j].on);
     }
-    for (int j = 0; j < nf; ++j)
-      fixed_pair_apply(f, fpx, fpy, j,
-                       lines + ((int64_t)(j * 4) * BN_MILLER_STEPS + i) * LINE_BLOCK,
-                       BN_MILLER_STEPS * LINE_BLOCK, n, lane);
-    if (!MILLER_BITS[i]) continue;  // add rows are zero where the bit is 0
+    if (!MILLER_BITS[i]) continue;
     for (int j = 0; j < m; ++j) {
       add_step(v[j].t, v[j].xq, v[j].yq, c0, c1, c3);
       mul_by_line(f, c0, c1, c3, v[j].xp, v[j].yp, v[j].on);
     }
-    for (int j = 0; j < nf; ++j)
-      fixed_pair_apply(f, fpx, fpy, j,
-                       lines + ((int64_t)(j * 4 + 2) * BN_MILLER_STEPS + i) * LINE_BLOCK,
-                       BN_MILLER_STEPS * LINE_BLOCK, n, lane);
   }
   // Frobenius corrections: q1 = pi(Q), q2 = -pi^2(Q)
   for (int j = 0; j < m; ++j) {
@@ -284,25 +233,6 @@ BN_INLINE void miller_chain(fq12& f, var_pair* v, int m, const int32_t* fpx,
     add_step(v[j].t, x2, y2, c0, c1, c3);
     mul_by_line(f, c0, c1, c3, v[j].xp, v[j].yp, v[j].on);
   }
-  for (int k = 0; k < 2; ++k)
-    for (int j = 0; j < nf; ++j)
-      fixed_pair_apply(f, fpx, fpy, j, tails + ((int64_t)(j * 2) * 2 + k) * LINE_BLOCK,
-                       2 * LINE_BLOCK, n, lane);
-}
-
-// One lane of kernel K3: at most one variable pair, px, py (16, n) and qx,
-// qy (16, 2, n), or null; nf fixed pairs from their line tables.
-BN_INLINE void miller_mixed_lane(const int32_t* px, const int32_t* py,
-                                 const int32_t* qx, const int32_t* qy,
-                                 const int32_t* fpx, const int32_t* fpy, int nf,
-                                 const int32_t* lines, const int32_t* tails,
-                                 int32_t* out, int64_t n, int64_t lane) {
-  var_pair v[1];
-  const int m = px != nullptr;
-  if (m) var_pair_load(v[0], px, py, qx, qy, n, lane);
-  fq12 f;
-  miller_chain(f, v, m, fpx, fpy, nf, lines, tails, n, lane);
-  store_fq12(out + lane, n, f);
 }
 
 #define MILLER_GROUP 4  // pairs per shared chain: 4 x (T, P, Q) = 1.5 KB of local memory
@@ -326,77 +256,11 @@ BN_INLINE void miller_product_lane(const int32_t* px, const int32_t* py,
                     py + (int64_t)(first + j) * 16 * n,
                     qx + (int64_t)(first + j) * 32 * n,
                     qy + (int64_t)(first + j) * 32 * n, n, lane);
-    miller_chain(f, v, m, nullptr, nullptr, 0, nullptr, nullptr, n, lane);
+    miller_chain(f, v, m);
     if (first == 0)
       acc = f;
     else
       fq12_mul(acc, acc, f);
   }
   store_fq12(out + lane, n, acc);
-}
-
-// a^x for the BN parameter x, a in the cyclotomic subgroup (rolled loop).
-BN_NOINLINE void cyc_exp_x(fq12& r, const fq12& a) {
-  fq12 acc = a;
-  for (int i = 1; i < BN_X_NBITS; ++i) {
-    fq12_cyclotomic_sq(acc, acc);
-    if (X_BITS[i]) fq12_mul(acc, acc, a);
-  }
-  r = acc;
-}
-
-// acc -> sq(... sq(sq(acc) * e0) * e1 ...) * e3), then one more sq.
-BN_NOINLINE void fe_ladder(fq12& acc, const fq12& e0, const fq12& e1,
-                           const fq12& e2, const fq12& e3) {
-  const fq12* e[4] = {&e0, &e1, &e2, &e3};
-  for (int k = 0; k < 4; ++k) {
-    fq12_cyclotomic_sq(acc, acc);
-    fq12_mul(acc, acc, *e[k]);
-  }
-  fq12_cyclotomic_sq(acc, acc);
-}
-
-// f^((p^12 - 1) / r) by the x-chain (ops/pairing.py::final_exponentiation):
-// m = f^((p^6-1)(p^2+1)); A, B, C = m^x, m^(x^2), m^(x^3);
-// t0 = conj((C^18 B^15 A^9 m)^2), t1 = conj((C^18 B^9 A^6)^2) m,
-// t2 = (B^3)^2 m; out = t0 t1^p t2^(p^2) m^(p^3).
-// Any input, zero included, is well-defined arithmetic (no faults): the
-// answer of a bad lane is masked by the caller.
-BN_INLINE void final_exp_lane(const int32_t* fin, int32_t* out, int64_t n,
-                              int64_t lane) {
-  fq12 f, m, a, b, c, u, v, acc;
-  load_fq12(f, fin + lane, n);
-  fq12_conj(u, f);
-  fq12_inv(v, f);
-  fq12_mul(m, u, v);                  // ^(p^6 - 1)
-  fq12_frobenius(u, m, 2);
-  fq12_mul(m, u, m);                  // ^(p^2 + 1)
-  cyc_exp_x(a, m);
-  cyc_exp_x(b, a);
-  cyc_exp_x(c, b);
-  // acc0 ladder over (BA, B, CB, BAm)
-  fq12 ba, cb, bam;
-  fq12_mul(ba, b, a);
-  fq12_mul(cb, c, b);
-  fq12_mul(bam, ba, m);
-  acc = c;
-  fe_ladder(acc, ba, b, cb, bam);
-  fq12_conj(f, acc);                  // t0
-  // acc1 ladder over (B, A, CA, B)
-  fq12_mul(u, c, a);
-  acc = c;
-  fe_ladder(acc, b, a, u, b);
-  fq12_conj(acc, acc);
-  fq12_mul(u, acc, m);                // t1
-  fq12_frobenius(u, u, 1);
-  fq12_mul(f, f, u);
-  fq12_cyclotomic_sq(u, b);
-  fq12_mul(u, u, b);
-  fq12_cyclotomic_sq(u, u);
-  fq12_mul(u, u, m);                  // t2
-  fq12_frobenius(u, u, 2);
-  fq12_mul(f, f, u);
-  fq12_frobenius(u, m, 3);
-  fq12_mul(f, f, u);
-  store_fq12(out + lane, n, f);
 }

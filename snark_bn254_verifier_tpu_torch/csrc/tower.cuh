@@ -93,7 +93,9 @@ BN_INLINE void fq2_mul_xi(fq2& r, const fq2& a) {
 }
 
 // Karatsuba: c0 = a0 b0 - a1 b1, c1 = (a0 + a1)(b0 + b1) - a0 b0 - a1 b1.
-BN_NOINLINE void fq2_mul(fq2& r, const fq2& a, const fq2& b) {
+// Inlined form, for the team kernels (team.cuh), whose products stay in
+// registers.
+BN_INLINE void fq2_mul_in(fq2& r, const fq2& a, const fq2& b) {
   fp t0, t1, sa, sb, t2;
   fp_mul<FQ>(t0, a.c0, b.c0);
   fp_mul<FQ>(t1, a.c1, b.c1);
@@ -104,6 +106,8 @@ BN_NOINLINE void fq2_mul(fq2& r, const fq2& a, const fq2& b) {
   fp_add<FQ>(t0, t0, t1);
   fp_sub<FQ>(r.c1, t2, t0);
 }
+
+BN_NOINLINE void fq2_mul(fq2& r, const fq2& a, const fq2& b) { fq2_mul_in(r, a, b); }
 
 BN_INLINE void fq2_sq(fq2& r, const fq2& a) { fq2_mul(r, a, a); }
 
@@ -281,58 +285,6 @@ BN_INLINE void load_fq2_const(fq2& r, const uint32_t* words) {
 BN_INLINE fq2& fq12_wcoeff(fq12& a, int i) {
   fq6& half = (i & 1) ? a.c1 : a.c0;
   return i < 2 ? half.c0 : (i < 4 ? half.c1 : half.c2);
-}
-
-// frob^power(sum a_i w^i) = sum conj^power(a_i) gamma_{power,i} w^i with
-// gamma_{power,i} = XI^(i (p^power - 1) / 6) (FROB_GAMMA, Montgomery form).
-BN_NOINLINE void fq12_frobenius(fq12& r, const fq12& a, int power) {
-  fq12 out = a;
-  for (int i = 0; i < 6; ++i) {
-    fq2& c = fq12_wcoeff(out, i);
-    if (power & 1) fq2_conj(c, c);
-    fq2 g;
-    load_fq2_const(g, &FROB_GAMMA[((power - 1) * 6 + i) * 2 * NW]);
-    fq2_mul(c, c, g);
-  }
-  r = out;
-}
-
-// Granger-Scott squaring in the cyclotomic subgroup (9 Fq2 squarings).
-BN_NOINLINE void fq12_cyclotomic_sq(fq12& r, const fq12& a) {
-  const fq2* z[6] = {&a.c0.c0, &a.c1.c1, &a.c1.c0, &a.c0.c2, &a.c0.c1, &a.c1.c2};
-  fq2 p0[3], p1[3];  // fp4 squares of (z0, z1), (z2, z3), (z4, z5)
-  for (int k = 0; k < 3; ++k) {
-    fq2 t0, t1, t2, s;
-    fq2_sq(t0, *z[2 * k]);
-    fq2_sq(t1, *z[2 * k + 1]);
-    fq2_add(s, *z[2 * k], *z[2 * k + 1]);
-    fq2_sq(t2, s);
-    fq2_mul_xi(s, t1);
-    fq2_add(p0[k], s, t0);
-    fq2_sub(t2, t2, t0);
-    fq2_sub(p1[k], t2, t1);
-  }
-  // z_new = 3 * fp4 part -/+ 2 * z_old
-  fq2 out[6], t, u;
-  const fq2* fresh[6] = {&p0[0], &p1[0], &p1[2], &p0[2], &p0[1], &p1[1]};
-  const int sign[6] = {-1, +1, +1, -1, -1, +1};  // z0 z1 z2 z3 z4 z5
-  for (int k = 0; k < 6; ++k) {
-    t = *fresh[k];
-    if (k == 2) fq2_mul_xi(t, t);  // z2 takes XI * c1
-    fq2_add(u, t, t);
-    fq2_add(u, u, t);
-    fq2_add(t, *z[k], *z[k]);
-    if (sign[k] < 0)
-      fq2_sub(out[k], u, t);
-    else
-      fq2_add(out[k], u, t);
-  }
-  r.c0.c0 = out[0];
-  r.c1.c1 = out[1];
-  r.c1.c0 = out[2];
-  r.c0.c2 = out[3];
-  r.c0.c1 = out[4];
-  r.c1.c2 = out[5];
 }
 
 // (16, 12, n) limb tensor <-> Fq12: component 6h + 2j + c.

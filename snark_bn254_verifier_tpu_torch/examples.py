@@ -22,12 +22,13 @@ import argparse
 import os
 import sys
 import time
+from pathlib import Path
 
-from snark_bn254_verifier_tpu import examples as reference_cli
-
-GOLDEN_DIR = reference_cli.GOLDEN_DIR
-ELFS = reference_cli.ELFS
-PLONK_VK = os.path.join(os.path.dirname(reference_cli.__file__), "fixtures", "plonk_vk.bin")
+_PKG = Path(__file__).resolve().parent
+# the reference checkout sits beside this repository
+GOLDEN_DIR = str(_PKG.parents[1] / "reference" / "examples" / "binaries")
+ELFS = ["fibonacci", "is-prime", "sha2", "tendermint"]
+PLONK_VK = str(_PKG / "fixtures" / "plonk_vk.bin")
 
 
 def _verifier(mode: str):
@@ -37,9 +38,9 @@ def _verifier(mode: str):
 
 
 def run_golden(elf: str, mode: str, vk_path: str | None, device: str) -> int:
-    from snark_bn254_verifier_tpu.oracle import bn254 as bn
-    from snark_bn254_verifier_tpu.utils import serialization as ser
-    from snark_bn254_verifier_tpu.utils.sp1_wrapper import load_sp1_wrapper
+    from .oracle import bn254 as bn
+    from .utils import serialization as ser
+    from .utils.sp1_wrapper import load_sp1_wrapper
 
     path = os.path.join(GOLDEN_DIR, f"{elf}_{mode}_proof.bin")
     if not os.path.exists(path):
@@ -72,7 +73,7 @@ def run_golden(elf: str, mode: str, vk_path: str | None, device: str) -> int:
 
 
 def run_synthetic(mode: str, device: str) -> int:
-    from snark_bn254_verifier_tpu.fixtures.gen import gen_groth16_vector, gen_plonk_vector
+    from .fixtures.gen import gen_groth16_vector, gen_plonk_vector
 
     vec = gen_groth16_vector(0) if mode == "groth16" else gen_plonk_vector(0)
     t0 = time.perf_counter()

@@ -1,0 +1,316 @@
+"""Synthetic gnark-format test-vector generation.
+
+The reference's end-to-end test depends on SP1 v2.0.0 circuit VK fixtures
+that live *outside* the repo (examples/program/src/groth16.rs:7 uses
+``include_bytes!("../../../../.sp1/circuits/v2.0.0/groth16_vk.bin")``) and are
+not available offline. To still test the complete pipeline bit-for-bit
+through the gnark byte formats, this module fabricates valid proofs with a
+known trapdoor:
+
+  * Groth16: pick scalars (alpha, beta, gamma, delta, k_i); for random
+    (a, b) the krs scalar solving the pairing equation is computable, so the
+    serialized (vk, proof, inputs) triple verifies by construction.
+  * PlonK: pick an SRS secret tau and scalar dlogs for every commitment;
+    derive the real Fiat-Shamir challenges from the serialized bytes, choose
+    claimed evaluations, set claimed_values[0] to the linearization constant
+    the verifier recomputes, and produce KZG quotients via
+    h = (d - y) / (tau - z). Every verifier path (BSB22 included) is
+    exercised and the KZG pairing equation holds for any randomizer.
+
+Vectors are byte-compatible with the reference loaders
+(verifier/src/groth16/converter.rs, verifier/src/plonk/converter.rs).
+"""
+
+from __future__ import annotations
+
+import random
+import struct
+from dataclasses import dataclass
+from typing import List, Tuple
+
+from ..oracle import bn254 as bn
+from ..utils import serialization as ser
+from ..utils.hash_to_field import WrappedHashToField
+from ..utils.transcript import ALPHA, BETA, GAMMA, ZETA, Transcript
+
+R = bn.R
+
+
+@dataclass
+class SyntheticVector:
+    proof: bytes
+    vk: bytes
+    public_inputs: List[int]
+
+
+def _g1(s: int):
+    return bn.g1_mul(bn.G1_GEN, s % R)
+
+
+def _g2(s: int):
+    return bn.g2_mul(bn.G2_GEN, s % R)
+
+
+def _rand_fr(rng: random.Random) -> int:
+    return rng.randrange(1, R)
+
+
+# ---------------------------------------------------------------------------
+# Groth16
+# ---------------------------------------------------------------------------
+
+
+def gen_groth16_vector(
+    seed: int = 0,
+    num_inputs: int = 2,
+    n_commitments: int = 0,
+    committed_array_lens: Tuple[int, ...] = (0,),
+) -> SyntheticVector:
+    """Trapdoor Groth16 vector.
+
+    ``n_commitments``/``committed_array_lens`` shape the OPTIONAL byte
+    regions: proof trailing commitments + pok (ignored by the reference
+    loader past byte 256, groth16/converter.rs:14-25) and the VK's
+    public_and_commitment_committed arrays (lengths parsed, contents
+    skipped, converter.rs:47-65). See gen_groth16_vector_sp1_shaped.
+    """
+    rng = random.Random(f"groth16-{seed}")
+    alpha, beta, gamma, delta = (_rand_fr(rng) for _ in range(4))
+    kappas = [_rand_fr(rng) for _ in range(num_inputs + 1)]
+    inputs = [_rand_fr(rng) for _ in range(num_inputs)]
+
+    a, b = _rand_fr(rng), _rand_fr(rng)
+    pi = kappas[0]
+    for w, kap in zip(inputs, kappas[1:]):
+        pi = (pi + w * kap) % R
+    # Verifier checks e(ar,bs)*e(PI,gamma)*e(krs,-delta) == e(alpha,-beta)
+    # (with the VK betas negated at load: groth16/converter.rs:74,79), i.e.
+    # a*b + pi*gamma - krs*delta == -alpha*beta (mod r).
+    krs = (a * b + pi * gamma + alpha * beta) * pow(delta, R - 2, R) % R
+
+    # --- vk bytes (gnark vk.WriteTo compressed layout) ---
+    vk_bytes = bytearray()
+    vk_bytes += ser.g1_to_compressed_bytes(_g1(alpha))
+    vk_bytes += ser.g1_to_compressed_bytes(_g1(beta))
+    vk_bytes += ser.g2_to_compressed_bytes(_g2(beta))
+    vk_bytes += ser.g2_to_compressed_bytes(_g2(gamma))
+    vk_bytes += ser.g1_to_compressed_bytes(_g1(delta))
+    vk_bytes += ser.g2_to_compressed_bytes(_g2(delta))
+    vk_bytes += struct.pack(">I", len(kappas))
+    for kap in kappas:
+        vk_bytes += ser.g1_to_compressed_bytes(_g1(kap))
+    # public_and_commitment_committed arrays (contents are skipped by both
+    # loaders; lengths drive the offset arithmetic)
+    vk_bytes += struct.pack(">I", len(committed_array_lens))
+    for alen in committed_array_lens:
+        vk_bytes += struct.pack(">I", alen)
+        for j in range(alen):
+            vk_bytes += struct.pack(">I", j + 1)
+    # Pedersen key (parsed but unverified by the reference)
+    vk_bytes += ser.g2_to_compressed_bytes(_g2(_rand_fr(rng)))
+    vk_bytes += ser.g2_to_compressed_bytes(_g2(_rand_fr(rng)))
+
+    # --- proof bytes: ar || bs || krs || u32 ncommitments || commitments
+    #     || pok (gnark proof.WriteTo layout) ---
+    proof_bytes = bytearray()
+    proof_bytes += ser.g1_to_uncompressed_bytes(_g1(a))
+    proof_bytes += ser.g2_to_uncompressed_bytes(_g2(b))
+    proof_bytes += ser.g1_to_uncompressed_bytes(_g1(krs))
+    proof_bytes += struct.pack(">I", n_commitments)
+    for _ in range(n_commitments):
+        proof_bytes += ser.g1_to_uncompressed_bytes(_g1(_rand_fr(rng)))
+    proof_bytes += ser.g1_to_uncompressed_bytes(_g1(1))
+
+    return SyntheticVector(bytes(proof_bytes), bytes(vk_bytes), inputs)
+
+
+def gen_groth16_vector_sp1_shaped(seed: int = 0) -> SyntheticVector:
+    """Trapdoor vector with the SP1 Groth16 VK/proof BYTE SHAPE
+    (VERDICT r3 item #9: the default 2-input synthetic didn't match).
+
+    SP1's wrap circuit (examples/program/src/groth16.rs consumes its vk via
+    groth16/converter.rs:28-89) is a gnark circuit with 2 public inputs
+    (vkey hash, committed-values digest) plus ONE gnark commitment, so its
+    serialized vk carries k-count = 1 + 2 + 1 = 4 and one
+    public_and_commitment_committed array, and its proof carries
+    ncommitments=1 + one commitment point + the Pedersen pok (388 bytes
+    total; the reference reads only the first 256). The trapdoor equation
+    here spans all 4 k-points (3 public inputs), so the byte path exercised
+    -- offsets, skips, trailing regions -- equals the golden one.
+    """
+    return gen_groth16_vector(
+        seed=seed, num_inputs=3, n_commitments=1, committed_array_lens=(0,)
+    )
+
+
+# ---------------------------------------------------------------------------
+# PlonK
+# ---------------------------------------------------------------------------
+
+
+def _find_root_of_unity(n: int, rng: random.Random) -> int:
+    assert (R - 1) % n == 0
+    while True:
+        a = rng.randrange(2, R)
+        w = pow(a, (R - 1) // n, R)
+        if pow(w, n // 2, R) != 1:
+            return w
+
+
+def gen_plonk_vector(seed: int = 0, num_inputs: int = 2, with_bsb22: bool = True) -> SyntheticVector:
+    rng = random.Random(f"plonk-{seed}")
+    n = 8
+    omega = _find_root_of_unity(n, rng)
+    size_inv = pow(n, R - 2, R)
+    coset_shift = 5
+    tau = _rand_fr(rng)  # SRS trapdoor
+
+    # vk digests as known dlogs
+    names = ["s0", "s1", "s2", "ql", "qr", "qm", "qo", "qk"]
+    d = {name: _rand_fr(rng) for name in names}
+    qcp = [_rand_fr(rng)] if with_bsb22 else []
+    cci = [1] if with_bsb22 else []
+
+    inputs = [_rand_fr(rng) for _ in range(num_inputs)]
+
+    # proof commitments as known dlogs
+    lro = [_rand_fr(rng) for _ in range(3)]
+    zd = _rand_fr(rng)
+    hq = [_rand_fr(rng) for _ in range(3)]
+    bsb = [_rand_fr(rng)] if with_bsb22 else []
+
+    # ---- replicate the verifier's transcript to get real challenges ----
+    fs = Transcript([GAMMA, BETA, ALPHA, ZETA])
+    for name in names[:3] + names[3:]:
+        fs.bind(GAMMA, ser.g1_to_bytes(_g1(d[name])))
+    for q in qcp:
+        fs.bind(GAMMA, ser.g1_to_bytes(_g1(q)))
+    for w in inputs:
+        fs.bind(GAMMA, ser.fr_to_bytes_be(w))
+    for c in lro:
+        fs.bind(GAMMA, ser.g1_to_bytes(_g1(c)))
+    gamma = ser.fr_from_bytes_be_mod_order(fs.compute_challenge(GAMMA))
+    beta = ser.fr_from_bytes_be_mod_order(fs.compute_challenge(BETA))
+    for c in bsb:
+        fs.bind(ALPHA, ser.g1_to_bytes(_g1(c)))
+    fs.bind(ALPHA, ser.g1_to_bytes(_g1(zd)))
+    alpha = ser.fr_from_bytes_be_mod_order(fs.compute_challenge(ALPHA))
+    for c in hq:
+        fs.bind(ZETA, ser.g1_to_bytes(_g1(c)))
+    zeta = ser.fr_from_bytes_be_mod_order(fs.compute_challenge(ZETA))
+
+    # ---- recompute the verifier's scalar quantities ----
+    zeta_n = pow(zeta, n, R)
+    zh_zeta = (zeta_n - 1) % R
+    lagrange_one = pow((zeta - 1) % R, R - 2, R) * zh_zeta % R * size_inv % R
+
+    pi = 0
+    accw = 1
+    for w in inputs:
+        li = zh_zeta * pow((zeta - accw) % R, R - 2, R) % R * size_inv % R * accw % R
+        pi = (pi + li * w) % R
+        accw = accw * omega % R
+    if with_bsb22:
+        htf = WrappedHashToField(b"BSB22-Plonk")
+        htf.write(ser.g1_to_bytes(_g1(bsb[0])))
+        hashed_cmt = int.from_bytes(htf.sum(), "big") % R
+        w_pow_i = pow(omega, num_inputs + cci[0], R)
+        lagrange = zh_zeta * w_pow_i % R * pow((zeta - w_pow_i) % R, R - 2, R) % R * size_inv % R
+        pi = (pi + lagrange * hashed_cmt) % R
+
+    # claimed evaluations (free choices)
+    l, r_, o, s1v, s2v = (_rand_fr(rng) for _ in range(5))
+    zu = _rand_fr(rng)
+    qcp_evals = [_rand_fr(rng)] if with_bsb22 else []
+
+    alpha_sq_l1 = lagrange_one * alpha % R * alpha % R
+    const_lin = (beta * s1v + gamma + l) % R
+    const_lin = const_lin * ((beta * s2v + gamma + r_) % R) % R
+    const_lin = const_lin * ((o + gamma) % R) % R * alpha % R * zu % R
+    const_lin = (const_lin - alpha_sq_l1 + pi) % R
+    const_lin = (-const_lin) % R
+
+    claimed_values = [const_lin, l, r_, o, s1v, s2v] + qcp_evals
+
+    # linearized digest dlog, same assembly as the verifier
+    _s1 = (beta * s1v + l + gamma) % R * ((beta * s2v + r_ + gamma) % R) % R
+    _s1 = _s1 * beta % R * alpha % R * zu % R
+    u_ = coset_shift
+    _s2 = (beta * zeta + gamma + l) % R
+    _s2 = _s2 * ((beta * u_ % R * zeta + gamma + r_) % R) % R
+    _s2 = _s2 * ((beta * u_ % R * u_ % R * zeta + gamma + o) % R) % R
+    _s2 = (-(_s2 * alpha)) % R
+    coeff_z = (alpha_sq_l1 + _s2) % R
+    rl = l * r_ % R
+    zeta_n2 = pow(zeta, n + 2, R)
+    zn2_zh = (-(zeta_n2 * zh_zeta)) % R
+    zn2sq_zh = (-(zeta_n2 * zeta_n2 % R * zh_zeta)) % R
+    zh_neg = (-zh_zeta) % R
+
+    point_dlogs = bsb + [d["ql"], d["qr"], d["qm"], d["qo"], d["qk"], d["s2"], zd] + hq
+    scalar_vals = qcp_evals + [l, r_, rl, o, 1, _s1, coeff_z, zh_neg, zn2_zh, zn2sq_zh]
+    lin_d = 0
+    for pd, sv in zip(point_dlogs, scalar_vals):
+        lin_d = (lin_d + pd * sv) % R
+
+    # fold: digests [lin, lro0..2, s0, s1, qcp...], gamma from fresh transcript
+    fold_dlogs = [lin_d, lro[0], lro[1], lro[2], d["s0"], d["s1"]] + qcp
+    tr = Transcript([GAMMA])
+    tr.bind(GAMMA, ser.fr_to_bytes_be(zeta))
+    for fd in fold_dlogs:
+        tr.bind(GAMMA, ser.g1_to_bytes(_g1(fd)))
+    for v in claimed_values:
+        tr.bind(GAMMA, ser.fr_to_bytes_be(v))
+    tr.bind(GAMMA, ser.fr_to_bytes_be(zu))
+    fold_gamma = ser.fr_from_bytes_be_mod_order(tr.compute_challenge(GAMMA))
+
+    fd_dlog, fe = 0, 0
+    gpow = 1
+    for dd, vv in zip(fold_dlogs, claimed_values):
+        fd_dlog = (fd_dlog + dd * gpow) % R
+        fe = (fe + vv * gpow) % R
+        gpow = gpow * fold_gamma % R
+
+    # KZG quotients via the trapdoor: h = (d - y) / (tau - z)
+    hb = (fd_dlog - fe) * pow((tau - zeta) % R, R - 2, R) % R
+    shifted = zeta * omega % R
+    hz = (zd - zu) * pow((tau - shifted) % R, R - 2, R) % R
+
+    # ---- serialize vk ----
+    vk_bytes = bytearray()
+    vk_bytes += struct.pack(">Q", n)
+    vk_bytes += ser.fr_to_bytes_be(size_inv)
+    vk_bytes += ser.fr_to_bytes_be(omega)
+    vk_bytes += struct.pack(">Q", num_inputs)
+    vk_bytes += ser.fr_to_bytes_be(coset_shift)
+    for name in names:
+        vk_bytes += ser.g1_to_compressed_bytes(_g1(d[name]))
+    vk_bytes += struct.pack(">I", len(qcp))
+    for q in qcp:
+        vk_bytes += ser.g1_to_compressed_bytes(_g1(q))
+    vk_bytes += ser.g1_to_compressed_bytes(_g1(1))       # kzg g1
+    vk_bytes += ser.g2_to_compressed_bytes(bn.G2_GEN)    # kzg g2[0]
+    vk_bytes += ser.g2_to_compressed_bytes(_g2(tau))     # kzg g2[1] = [tau]G2
+    vk_bytes += b"\x00" * ser.GNARK_PRECOMPUTED_LINES_SIZE
+    vk_bytes += struct.pack(">Q", len(cci))
+    for c in cci:
+        vk_bytes += struct.pack(">Q", c)
+
+    # ---- serialize proof ----
+    proof_bytes = bytearray()
+    for c in lro:
+        proof_bytes += ser.g1_to_uncompressed_bytes(_g1(c))
+    proof_bytes += ser.g1_to_uncompressed_bytes(_g1(zd))
+    for c in hq:
+        proof_bytes += ser.g1_to_uncompressed_bytes(_g1(c))
+    proof_bytes += ser.g1_to_uncompressed_bytes(_g1(hb))
+    proof_bytes += struct.pack(">I", len(claimed_values))
+    for v in claimed_values:
+        proof_bytes += ser.fr_to_bytes_be(v)
+    proof_bytes += ser.g1_to_uncompressed_bytes(_g1(hz))
+    proof_bytes += ser.fr_to_bytes_be(zu)
+    proof_bytes += struct.pack(">I", len(bsb))
+    for c in bsb:
+        proof_bytes += ser.g1_to_uncompressed_bytes(_g1(c))
+
+    return SyntheticVector(bytes(proof_bytes), bytes(vk_bytes), inputs)

@@ -2,9 +2,8 @@
 
 The counterpart of snark_bn254_verifier_tpu/models/jax_backend.py
 (``JaxBackend``, jax_backend.py:140-197 there), with the OracleBackend
-interface of models/backend.py, so the JAX package's JAX-free protocol
-code (``verify_groth16``, ``PreparedVerifyingKey``, ``verify_plonk``)
-runs on it unchanged. Each primitive packs its host points into limb
+interface of models/backend.py, so the protocol code (``verify_groth16``,
+``PreparedVerifyingKey``, ``verify_plonk``) runs on it unchanged. Each primitive packs its host points into limb
 tensors on the backend's device, runs its kernels and makes one copy back
 to the host:
 
@@ -23,8 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from snark_bn254_verifier_tpu.oracle import bn254 as bn
-
+from ..oracle import bn254 as bn
 from ..ops import pairing_cuda as PC
 from ..ops import tower as T
 from ..parallel.batch import resolve_device

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels (nvcc + ctypes).
 
-``load_kernels()`` compiles csrc/kernels.cu with one ``nvcc`` call into a
-shared library with a plain C interface under the package's ``_build/``
-directory (ignored by git), rebuilding whenever a source is newer than
-the library, and loads it with ctypes. The repository's sources are the
+``load_kernels()`` compiles the units of csrc/ (``UNITS``), one ``nvcc``
+each, all at once, and links them into a shared library with a plain C
+interface under the package's ``_build/`` directory (ignored by git),
+rebuilding whenever a source is newer than the library, and loads it with
+ctypes. The repository's sources are the
 only inputs: the constants header is generated here from the oracle, so
 nothing numeric is typed by hand. ``load_host_check()`` builds the same
 headers with the host C++ compiler into a test-only library.
@@ -22,8 +23,7 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
-from snark_bn254_verifier_tpu.oracle import bn254 as bn
-
+from ..oracle import bn254 as bn
 from .limbs import FQ, FR, int_to_words
 from .lines import MILLER_BITS
 
@@ -32,7 +32,7 @@ CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 CONSTS_HEADER = "bn254_consts.h"
 CUDA_ARCH = "-gencode=arch=compute_90a,code=sm_90a"
-STACK_BYTES = 16384  # per-thread stack for K2-K5's __noinline__ call chains
+STACK_BYTES = 16384  # per-thread stack for the __noinline__ call chains of K2, K4's inverse and K5
 
 _P = ctypes.c_void_p
 _N = ctypes.c_longlong
@@ -139,22 +139,49 @@ class KernelLib:
     build_log: str   # nvcc/ptxas output of that build ("" if cached)
 
 
+# One nvcc per compiled unit, all started together: (source, defines).
+# team_kernels.cu is built once per (team kernel, team size).
+TEAMS = (12, 18)
+UNITS = [("kernels.cu", ())] + [
+    ("team_kernels.cu", (f"-DBN_TEAM_KERNEL={k}", f"-DBN_TEAM={t}"))
+    for k in (3, 4) for t in TEAMS
+]
+
+
+def _build_objects(nvcc: str) -> tuple:
+    """Compile every unit of UNITS into an object, in parallel; returns
+    (objects, their ptxas reports)."""
+    obj_dir = BUILD_DIR / "obj"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for src, defines in UNITS:
+        obj = obj_dir / ("_".join([Path(src).stem] + [d.split("=")[-1] for d in defines]) + ".o")
+        cmd = [nvcc, CUDA_ARCH, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", *defines, "-I", str(BUILD_DIR), "-I", str(CSRC),
+               str(CSRC / src), "-o", str(obj)]
+        procs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.STDOUT, text=True)))
+    t0, logs = time.perf_counter(), []
+    for cmd, obj, proc in procs:
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n{out}")
+        logs.append(f"{obj.name}: done after {time.perf_counter() - t0:.1f} s\n{out}")
+    return [obj for _, obj, _ in procs], "".join(logs)
+
+
 @functools.lru_cache(maxsize=None)
 def load_kernels() -> KernelLib:
     """Build (if stale) and load the CUDA kernel library."""
     consts = _write_consts(BUILD_DIR)
     lib_path = BUILD_DIR / "libbn254_kernels.so"
-    sources = sorted(CSRC.glob("*.cu"))
-    inputs = sources + sorted(CSRC.glob("*.cuh")) + [consts]
+    inputs = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")) + [consts]
     t0 = time.perf_counter()
     log = ""
     if _stale(lib_path, inputs):
-        cmd = [
-            find_nvcc(), CUDA_ARCH, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-I", str(BUILD_DIR), "-I", str(CSRC),
-        ] + [str(s) for s in sources]
-        log = _compile(cmd, lib_path)
+        nvcc = find_nvcc()
+        objects, log = _build_objects(nvcc)
+        log += _compile([nvcc, CUDA_ARCH, "-shared"] + [str(o) for o in objects], lib_path)
         (BUILD_DIR / "nvcc.log").write_text(log)
     build_s = time.perf_counter() - t0 if log else 0.0
     return KernelLib(bind_kernels(lib_path), build_s, log)
@@ -165,16 +192,24 @@ def bind_kernels(lib_path: Path) -> ctypes.CDLL:
     device still needs ``bn_init(STACK_BYTES)`` before its first launch
     (ops/field_cuda.py::launch)."""
     lib = ctypes.CDLL(str(lib_path))
-    lib.bn_init.argtypes = [_N]
     lib.bn_error_string.argtypes = [_I]
     lib.bn_error_string.restype = ctypes.c_char_p
-    lib.bn_mont_mul.argtypes = [_P, _P, _P, _N, _I, _P]
-    lib.bn_msm_affine.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _N, _P]
-    lib.bn_miller_mixed.argtypes = [_P] * 6 + [_I, _P, _P, _P, _N, _P]
-    lib.bn_final_exp.argtypes = [_P, _P, _N, _P]
-    lib.bn_miller_product.argtypes = [_P] * 4 + [_I, _P, _N, _P]
-    for fn in ("bn_init", "bn_mont_mul", "bn_msm_affine", "bn_miller_mixed",
-               "bn_final_exp", "bn_miller_product"):
+    sigs = {
+        "bn_init": [_N],
+        "bn_mont_mul": [_P, _P, _P, _N, _I, _P],
+        "bn_msm_affine": [_P, _P, _P, _P, _I, _P, _P, _P, _N, _P],
+        "bn_miller_product": [_P] * 4 + [_I, _P, _N, _P],
+        "bn_mont_mul_attrs": [_P],
+        "bn_msm_affine_attrs": [_P],
+        "bn_miller_product_attrs": [_P],
+    }
+    for t in TEAMS:
+        sigs[f"bn_miller_mixed_t{t}"] = [_P] * 6 + [_I, _P, _P, _P, _N, _I, _P]
+        sigs[f"bn_final_exp_t{t}"] = [_P, _P, _N, _I, _P]
+        sigs[f"bn_miller_mixed_attrs_t{t}"] = [_I, _P]
+        sigs[f"bn_final_exp_attrs_t{t}"] = [_I, _P]
+    for fn, args in sigs.items():
+        getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = _I
     return lib
 
@@ -199,14 +234,14 @@ def load_host_check() -> ctypes.CDLL:
     src = CSRC / "host_check.cc"
     inputs = [src, consts] + sorted(CSRC.glob("*.cuh"))
     if _stale(lib_path, inputs):
-        _compile([cxx, "-O1", "-std=c++17", "-shared", "-fPIC",
+        _compile([cxx, "-O1", "-std=c++20", "-pthread", "-shared", "-fPIC",
                   "-I", str(build_dir), "-I", str(CSRC), str(src)], lib_path)
     lib = ctypes.CDLL(str(lib_path))
     lib.host_mont_mul.argtypes = [_P, _P, _P, _N, _I]
     lib.host_fq12_mul.argtypes = [_P, _P, _P, _N]
     lib.host_msm_affine.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _N]
-    lib.host_miller_mixed.argtypes = [_P] * 6 + [_I, _P, _P, _P, _N]
-    lib.host_final_exp.argtypes = [_P, _P, _N]
+    lib.host_miller_mixed.argtypes = [_P] * 6 + [_I, _P, _P, _P, _N, _I, _I]
+    lib.host_final_exp.argtypes = [_P, _P, _N, _I, _I]
     lib.host_miller_product.argtypes = [_P] * 4 + [_I, _P, _N]
     for fn in ("host_mont_mul", "host_fq12_mul", "host_msm_affine",
                "host_miller_mixed", "host_final_exp", "host_miller_product"):

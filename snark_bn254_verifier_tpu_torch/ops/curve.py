@@ -19,8 +19,7 @@ from typing import Callable
 
 import torch
 
-from snark_bn254_verifier_tpu.oracle import bn254 as bn
-
+from ..oracle import bn254 as bn
 from . import field as F
 from . import tower as T
 from .limbs import FQ, LIMB_BITS

@@ -18,7 +18,7 @@ from typing import Sequence
 
 import numpy as np
 
-from snark_bn254_verifier_tpu.oracle import bn254 as bn
+from ..oracle import bn254 as bn
 
 LIMB_BITS = 16
 NUM_LIMBS = 16

@@ -20,8 +20,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from snark_bn254_verifier_tpu.oracle import bn254 as bn
-
+from ..oracle import bn254 as bn
 from .limbs import FQ
 
 # Bits of 6x+2 after the leading one: STEPS doubling steps, with an add

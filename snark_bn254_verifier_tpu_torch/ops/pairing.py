@@ -27,8 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from snark_bn254_verifier_tpu.oracle import bn254 as bn
-
+from ..oracle import bn254 as bn
 from . import field as F
 from . import tower as T
 from .lines import MILLER_BITS

@@ -13,7 +13,8 @@ its kernel, checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on its tensors' device and that
 device's current stream, raises on a CUDA error and counts its launches
 in ``<wrapper>.launches``. No wrapper pads the batch: the kernels mask
-the ragged edge.
+the ragged edge. K3 and K4 run on a team of threads per lane, in the
+shape ``TEAM_SHAPE`` names.
 """
 
 from __future__ import annotations
@@ -31,6 +32,13 @@ from .limbs import NUM_LIMBS
 # of chip_smoke.py, so no kernel ships without an on-card check.
 KERNEL_ENTRY_POINTS = ("mont_mul", "msm_affine", "miller_mixed", "final_exp",
                        "miller_product")
+
+
+# (threads per lane, lanes per block) of the team kernels K3 and K4
+# (csrc/team.cuh), chosen by measurement on an H100 (PERF.md);
+# chip_smoke.py times the shapes it tries by setting this.
+TEAM_SHAPE = {"miller_mixed": (18, 4), "final_exp": (12, 8)}
+NF_MAX = 2  # fixed pairs whose line tables K3 stages in shared memory
 
 
 def launch_counts() -> dict:
@@ -111,6 +119,8 @@ def miller_mixed(var_p, var_q, fixed_ps, lines, tails):
     if _on_cpu(*tensors):
         return PR.miller_mixed(var_p, var_q, fixed_ps, lines, tails)
     nf = len(fixed_ps)
+    if nf > NF_MAX:
+        raise ValueError(f"miller_mixed: at most {NF_MAX} fixed pairs, got {nf}")
     b = fixed_ps[0][0].shape[-1] if nf else var_p[0].shape[-1]
     _expect("lines", lines, (nf, 4, STEPS, NUM_LIMBS, 2))
     _expect("tails", tails, (nf, 2, 2, NUM_LIMBS, 2))
@@ -137,9 +147,11 @@ def miller_mixed(var_p, var_q, fixed_ps, lines, tails):
     out = torch.empty((NUM_LIMBS, 12, b), dtype=torch.int32, device=dev)
     if b == 0:
         return out
-    launch(dev, "bn_miller_mixed", *[t.data_ptr() if t is not None else None for t in var],
+    team, lpb = TEAM_SHAPE["miller_mixed"]
+    launch(dev, f"bn_miller_mixed_t{team}",
+           *[t.data_ptr() if t is not None else None for t in var],
            fpx.data_ptr(), fpy.data_ptr(), nf, lines.data_ptr(), tails.data_ptr(),
-           out.data_ptr(), b)
+           out.data_ptr(), b, lpb)
     miller_mixed.launches += 1
     return out
 
@@ -153,7 +165,8 @@ def final_exp(f):
     out = torch.empty_like(f)
     if f.shape[-1] == 0:
         return out
-    launch(f.device, "bn_final_exp", f.data_ptr(), out.data_ptr(), f.shape[-1])
+    team, lpb = TEAM_SHAPE["final_exp"]
+    launch(f.device, f"bn_final_exp_t{team}", f.data_ptr(), out.data_ptr(), f.shape[-1], lpb)
     final_exp.launches += 1
     return out
 

@@ -20,8 +20,7 @@ import functools
 
 import torch
 
-from snark_bn254_verifier_tpu.oracle import bn254 as bn
-
+from ..oracle import bn254 as bn
 from . import field as F
 from .limbs import FQ
 

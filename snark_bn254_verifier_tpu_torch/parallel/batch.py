@@ -28,12 +28,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from snark_bn254_verifier_tpu.oracle import bn254 as bn
-from snark_bn254_verifier_tpu.utils import errors
-from snark_bn254_verifier_tpu.utils import native
-from snark_bn254_verifier_tpu.utils import serialization as ser
-from snark_bn254_verifier_tpu.utils.profiling import RunStats
-
+from ..oracle import bn254 as bn
+from ..utils import errors
+from ..utils import native
+from ..utils import serialization as ser
+from ..utils.profiling import RunStats
 from ..models.packing import pack_fq12, pack_fr_canonical, pack_g1, pack_g2
 from ..ops import curve as C
 from ..ops import field_cuda as FC

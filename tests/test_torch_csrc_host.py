@@ -92,7 +92,9 @@ def test_msm_affine_lane_matches_oracle(lib):
         assert (None if oinf[lane] else (xs[lane], ys[lane])) == want
 
 
-def test_final_exp_of_miller_mixed_lane_matches_oracle(lib):
+@pytest.mark.parametrize("team", [12, 18])
+def test_final_exp_of_miller_mixed_lane_matches_oracle(lib, team):
+    """K3 then K4, each on a team of ``team`` threads, for one lane."""
     rng = random.Random(54)
     q_fixed = [bn.g2_mul(bn.G2_GEN, rng.randrange(1, bn.R)) for _ in range(2)]
     lines, tails = LN.tables_from_numpy([LN.g2_line_table(q) for q in q_fixed])
@@ -107,9 +109,9 @@ def test_final_exp_of_miller_mixed_lane_matches_oracle(lib):
     fpy = c_tensor(np.stack([p[1] for p in fp]))
     f = torch.empty((16, 12, 1), dtype=torch.int32)
     assert lib.host_miller_mixed(ptr(px), ptr(py), ptr(qx), ptr(qy), ptr(fpx), ptr(fpy),
-                                 2, ptr(lines), ptr(tails), ptr(f), 1) == 0
+                                 2, ptr(lines), ptr(tails), ptr(f), 1, team, 1) == 0
     gt = torch.empty_like(f)
-    assert lib.host_final_exp(ptr(f), ptr(gt), 1) == 0
+    assert lib.host_final_exp(ptr(f), ptr(gt), 1, team, 1) == 0
     want = bn.pairing_batch([(fixed[0], q_fixed[0]), (fixed[1], q_fixed[1]), (vp, vq)])
     assert unpack_fq12(gt.numpy()) == [want]
 
@@ -139,9 +141,11 @@ def test_msm_affine_lane_combines_point_groups(lib):
         assert (None if oinf[lane] else (xs[lane], ys[lane])) == want
 
 
-def test_miller_mixed_lanes_with_infinite_pairs_equal_plain_twin(lib):
+@pytest.mark.parametrize("team,lpb", [(12, 3), (18, 2)])
+def test_miller_mixed_lanes_with_infinite_pairs_equal_plain_twin(lib, team, lpb):
     """Infinite pairs go through the same calls as the others, with the
-    line (1, 0, 0): the Miller value stays limb-equal to the plain twin."""
+    line (1, 0, 0): the Miller value stays limb-equal to the plain twin.
+    Four lanes over blocks of ``lpb`` lanes: the last block is ragged."""
     from snark_bn254_verifier_tpu_torch.ops import pairing as PR
 
     rng = random.Random(56)
@@ -166,7 +170,7 @@ def test_miller_mixed_lanes_with_infinite_pairs_equal_plain_twin(lib):
     fpy = c_tensor(torch.stack([torch.where(inf, 0, y) for _, y, inf in fixed]))
     f = torch.empty((16, 12, 4), dtype=torch.int32)
     assert lib.host_miller_mixed(ptr(px), ptr(py), ptr(qx), ptr(qy), ptr(fpx), ptr(fpy),
-                                 2, ptr(lines), ptr(tails), ptr(f), 4) == 0
+                                 2, ptr(lines), ptr(tails), ptr(f), 4, team, lpb) == 0
     assert torch.equal(f, want)
 
 
@@ -207,3 +211,43 @@ def test_miller_product_lanes_with_infinite_pairs_equal_plain_twin(lib):
         out = torch.empty((16, 12, b), dtype=torch.int32)
         assert lib.host_miller_product(ptr(px), ptr(py), ptr(qx), ptr(qy), k, ptr(out), b) == 0
         assert torch.equal(out, acc.to(torch.int32)), k
+
+
+@pytest.mark.parametrize("team,lpb", [(12, 2), (18, 1)])
+def test_miller_mixed_fixed_only_equals_plain_twin(lib, team, lpb):
+    """K3 with no variable pair (PlonK's shape): null pointers for it, two
+    fixed pairs, one of them at infinity on lane 1."""
+    from snark_bn254_verifier_tpu_torch.ops import pairing as PR
+
+    rng = random.Random(58)
+    q_fixed = [bn.g2_mul(bn.G2_GEN, rng.randrange(1, bn.R)) for _ in range(2)]
+    lines, tails = LN.tables_from_numpy([LN.g2_line_table(q) for q in q_fixed])
+    lines, tails = lines.contiguous(), tails.contiguous()
+    g1 = [bn.g1_mul(bn.G1_GEN, rng.randrange(1, bn.R)) for _ in range(3)]
+    fl = [[g1[0], None, g1[2]], [g1[1], g1[2], g1[0]]]
+    fixed = tuple(tuple(c_tensor(a) for a in pack_g1(l)) for l in fl)
+    want = PR.miller_mixed(None, None, fixed, lines, tails)
+    fpx = c_tensor(torch.stack([torch.where(inf, 0, x) for x, _, inf in fixed]))
+    fpy = c_tensor(torch.stack([torch.where(inf, 0, y) for _, y, inf in fixed]))
+    f = torch.empty((16, 12, 3), dtype=torch.int32)
+    assert lib.host_miller_mixed(None, None, None, None, ptr(fpx), ptr(fpy), 2, ptr(lines),
+                                 ptr(tails), ptr(f), 3, team, lpb) == 0
+    assert torch.equal(f, want)
+
+
+@pytest.mark.parametrize("team,lpb", [(12, 2), (18, 3)])
+def test_final_exp_team_on_arbitrary_lanes_equals_plain_twin(lib, team, lpb):
+    """K4 on what a bad lane may hold: zero, one and random Fq12 values
+    (not in the cyclotomic subgroup), limb-equal to the plain twin."""
+    from snark_bn254_verifier_tpu_torch.ops import pairing as PR
+
+    rng = np.random.default_rng(59)
+    limbs = rng.integers(0, 1 << 16, size=(16, 12, 4), dtype=np.int64)
+    limbs[15] = rng.integers(0, bn.P >> 240, size=(12, 4))
+    f = c_tensor(limbs.astype(np.int32))
+    f[:, :, 0] = 0
+    f[:, :, 1] = c_tensor(pack_fq12([bn.FQ12_ONE]))[:, :, 0]
+    f = f.contiguous()
+    out = torch.empty_like(f)
+    assert lib.host_final_exp(ptr(f), ptr(out), 4, team, lpb) == 0
+    assert torch.equal(out, PR.final_exp(f).to(torch.int32))

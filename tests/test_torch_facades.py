@@ -20,6 +20,7 @@ from snark_bn254_verifier_tpu.oracle import bn254 as bn
 from snark_bn254_verifier_tpu.utils import errors
 from snark_bn254_verifier_tpu.utils import serialization as ser
 from snark_bn254_verifier_tpu_torch import Groth16Verifier, PlonkVerifier
+from snark_bn254_verifier_tpu_torch.utils import errors as port_errors
 
 
 @pytest.fixture(scope="module")
@@ -35,8 +36,9 @@ def plonk():
 def outcome(fn):
     try:
         return ("ok", fn())
-    except errors.VerifierError as e:
-        return ("raises", type(e))
+    except (errors.VerifierError, port_errors.VerifierError) as e:
+        # each package raises its own copy of the taxonomy: compare by name
+        return ("raises", type(e).__name__)
 
 
 def tampered_claimed_value(vec):
@@ -60,7 +62,7 @@ def test_groth16_wrong_input_value_is_false(g16):
 
 
 def test_groth16_wrong_input_count_raises(g16):
-    with pytest.raises(errors.PrepareInputsFailedError):
+    with pytest.raises(port_errors.PrepareInputsFailedError):
         Groth16Verifier.verify(g16.proof, g16.vk, list(g16.public_inputs[:-1]), device="cpu")
 
 
@@ -92,7 +94,7 @@ def test_plonk_good_proof_verifies(plonk):
 def test_plonk_tampered_claimed_value_raises_the_oracle_error(plonk):
     proof = tampered_claimed_value(plonk)
     want = outcome(lambda: RefPlonk.verify(proof, plonk.vk, plonk.public_inputs, backend="oracle"))
-    assert want == ("raises", errors.OpeningPolyMismatchError)
+    assert want == ("raises", "OpeningPolyMismatchError")
     got = outcome(lambda: PlonkVerifier.verify(proof, plonk.vk, plonk.public_inputs, device="cpu"))
     assert got == want
 

@@ -12,9 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from snark_bn254_verifier_tpu.fixtures.gen import gen_groth16_vector
-from snark_bn254_verifier_tpu.oracle import bn254 as bn
 from snark_bn254_verifier_tpu_torch import Groth16BatchVerifier, Groth16Verifier
+from snark_bn254_verifier_tpu_torch.fixtures.gen import gen_groth16_vector
 from snark_bn254_verifier_tpu_torch.models.packing import pack_g1, pack_g2, pair_major
 from snark_bn254_verifier_tpu_torch.ops import curve as C
 from snark_bn254_verifier_tpu_torch.ops import field as F
@@ -22,6 +21,7 @@ from snark_bn254_verifier_tpu_torch.ops import lines as LN
 from snark_bn254_verifier_tpu_torch.ops import pairing as PR
 from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
 from snark_bn254_verifier_tpu_torch.ops.limbs import FQ, FR
+from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
 
 pytestmark = pytest.mark.gpu
 
@@ -84,7 +84,12 @@ def test_msm_affine_kernel_more_points_than_a_group(cuda):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
-def test_miller_and_final_exp_kernels_equal_plain(cuda):
+@pytest.mark.parametrize("shape", [(12, 8), (12, 3), (18, 4)])
+def test_miller_and_final_exp_kernels_equal_plain(cuda, shape, monkeypatch):
+    """K3 and K4 at a team shape (threads per lane, lanes per block); at
+    (6, 3) the last block of the batch of 32 is ragged."""
+    monkeypatch.setitem(PC.TEAM_SHAPE, "miller_mixed", shape)
+    monkeypatch.setitem(PC.TEAM_SHAPE, "final_exp", shape)
     rng = random.Random(63)
     q_fixed = [bn.g2_mul(bn.G2_GEN, rng.randrange(1, bn.R)) for _ in range(2)]
     lines, tails = LN.tables_from_numpy([LN.g2_line_table(q) for q in q_fixed], cuda)

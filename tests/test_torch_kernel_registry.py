@@ -40,6 +40,10 @@ def test_every_kernel_has_a_chip_smoke_phase():
 
 
 def test_every_kernel_has_a_cuda_entry_point():
-    src = (REPO / "snark_bn254_verifier_tpu_torch" / "csrc" / "kernels.cu").read_text()
+    """A C entry point and a __global__ kernel in csrc/*.cu: bn_<name> in
+    kernels.cu, or bn_<name>_t<team> (BN_NAME) in team_kernels.cu."""
+    csrc = REPO / "snark_bn254_verifier_tpu_torch" / "csrc"
+    src = "".join(p.read_text() for p in sorted(csrc.glob("*.cu")))
     for name in PC.KERNEL_ENTRY_POINTS:
-        assert f"int bn_{name}(" in src and f"{name}_kernel" in src, name
+        entry = f"int bn_{name}(" in src or f"int BN_NAME(bn_{name})(" in src
+        assert entry and f"__global__ void {name}_kernel(" in src, name
