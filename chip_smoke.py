@@ -12,8 +12,7 @@ It builds the port's CUDA kernels from csrc/, then
      lanes against the oracle, at the batched path's shapes (batch 1024,
      with edge lanes), then on inputs where about half the lanes take the
      infinity or skip branches (and K2 on 9 points, more than one Straus
-     group), and times kernel and twin, each warm; K3 and K4 also at each
-     team shape of TEAM_SHAPES, each exact; then K2 (11 and 1 points), K4
+     group), and times kernel and twin, each warm; then K2 (11 and 1 points), K4
      and K5 (3 and 2 pairs) at batch one, the single-proof path's shapes,
      exact against their twins and timed on those inputs; and computes
      each kernel's bound from the work its twin counts on one lane;
@@ -56,8 +55,7 @@ CSRC = "snark_bn254_verifier_tpu_torch/csrc/"
 SOURCE = {"mont_mul": CSRC + "fp.cuh", "msm_affine": CSRC + "curve.cuh",
           "miller_mixed": CSRC + "team.cuh", "final_exp": CSRC + "team.cuh",
           "miller_product": CSRC + "pairing.cuh"}
-# team shapes (threads per lane, lanes per block) timed for K3 and K4
-TEAM_SHAPES = [(12, 4), (12, 8), (12, 16), (18, 2), (18, 4), (18, 8)]
+TEAM_KERNELS = ("miller_mixed", "final_exp")  # run on a team of threads per lane
 # The card's peaks for the bounds (NVIDIA's H100 SXM data sheet, and the
 # CUDA Programming Guide's throughput table for compute capability 9.0: 64
 # 32-bit integer multiply-adds per clock per SM, 132 SMs, 1.98 GHz boost).
@@ -158,25 +156,6 @@ def lane_cpu(args, lane):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def sweep_team_shapes(ctx, name, fn, want):
-    """Times ``fn`` on the card at each team shape of TEAM_SHAPES (each
-    output exact against ``want``), then restores the default shape.
-    Returns {"team x lpb": ms}."""
-    from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
-
-    default, out = PC.TEAM_SHAPE[name], {}
-    try:
-        for shape in TEAM_SHAPES:
-            PC.TEAM_SHAPE[name] = shape
-            require(max_abs_err(fn(), want) == 0, f"{name} at team shape {shape} differs")
-            out[f"{shape[0]}x{shape[1]}"] = time_kernel(fn, 3)
-    finally:
-        PC.TEAM_SHAPE[name] = default
-    print(f"{name} team shapes (threads per lane x lanes per block), ms: "
-          + json.dumps({k: round(v, 3) for k, v in out.items()}))
-    return out
 
 
 class Ctx:
@@ -424,12 +403,9 @@ def phase_miller_mixed(ctx):
                 lambda: PR.miller_mixed(*lane_cpu(args, 4), lines.cpu(), tails.cpu()))
             flat = [t for pt in args[:2] for t in pt] + [t for pt in args[2] for t in pt]
             bnd = bound(per_lane * b, nbytes(*flat, lines, tails, got))
-            sweep = sweep_team_shapes(ctx, "miller_mixed",
-                                      lambda: PC.miller_mixed(*args, lines, tails), want)
         print(msg)
         err = max(err, e)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": [16, 12, b],
-            "team_shapes_ms": sweep, **bnd}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": [16, 12, b], **bnd}
 
 
 def phase_final_exp(ctx):
@@ -465,7 +441,6 @@ def phase_final_exp(ctx):
           f"oracle ok ({len(lanes)} lanes); kernel {ms:.3f} ms, plain {plain_ms:.1f} ms (warm)")
     per_lane = count_fp_muls(lambda: PR.final_exp(lane_cpu(f, 4)))  # the work is data-independent
     out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": [16, 12, ctx.batch],
-           "team_shapes_ms": sweep_team_shapes(ctx, "final_exp", lambda: PC.final_exp(f), want),
            **bound(per_lane * ctx.batch, nbytes(f, got))}
     # the single-proof path's shape, batch one: a Miller value of a lane
     # whose pairs are all finite (K3's lane 4)
@@ -824,7 +799,8 @@ def run_single(iters: int):
 
 def kernel_attrs(lib) -> dict:
     """Registers, stack (local) bytes and shared bytes per thread block of
-    each kernel, from cudaFuncGetAttributes; K3 and K4 at their team shape."""
+    each kernel, from cudaFuncGetAttributes; K3 and K4 also report their
+    team shape (csrc/team.cuh)."""
     import ctypes
 
     from snark_bn254_verifier_tpu_torch.ops import _build
@@ -832,17 +808,12 @@ def kernel_attrs(lib) -> dict:
 
     out = {}
     for name in PC.KERNEL_ENTRY_POINTS:
-        vals = (ctypes.c_int * 4)()
-        if name in PC.TEAM_SHAPE:
-            team, lpb = PC.TEAM_SHAPE[name]
-            code = getattr(lib, f"bn_{name}_attrs_t{team}")(lpb, vals)
-        else:
-            code = getattr(lib, f"bn_{name}_attrs")(vals)
-        _build.check(lib, code, f"bn_{name}_attrs")
+        vals = (ctypes.c_int * 6)()
+        _build.check(lib, getattr(lib, f"bn_{name}_attrs")(vals), f"bn_{name}_attrs")
         out[name] = {"registers": vals[0], "stack_bytes": vals[1],
                      "shared_bytes_per_block": vals[2] + vals[3]}
-        if name in PC.TEAM_SHAPE:
-            out[name]["team"] = {"threads_per_lane": team, "lanes_per_block": lpb}
+        if name in TEAM_KERNELS:
+            out[name]["team"] = {"threads_per_lane": vals[4], "lanes_per_block": vals[5]}
     return out
 
 

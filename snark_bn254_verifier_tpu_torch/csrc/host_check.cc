@@ -12,7 +12,8 @@
 #include "team.cuh"
 
 // Runs body(tid, block, smem) for every thread of the grid of a team
-// kernel over n lanes, one block at a time.
+// kernel over n lanes (team threads per lane, lpb lanes per block), one
+// block at a time.
 template <typename Body>
 static void host_team_grid(long long n, int team, int lpb, long long smem_bytes, Body body) {
   const int nthreads = team * lpb;
@@ -63,32 +64,24 @@ int host_msm_affine(const int32_t* px, const int32_t* py, const uint8_t* pinf,
   return 0;
 }
 
-// team: 12 or 18 (the sizes the kernel library builds).
+// K3 and K4 at the kernels' shapes (team.cuh).
 int host_miller_mixed(const int32_t* px, const int32_t* py, const int32_t* qx,
                       const int32_t* qy, const int32_t* fpx, const int32_t* fpy,
                       int nf, const int32_t* lines, const int32_t* tails,
-                      int32_t* out, long long n, int team, int lpb) {
-  if (nf < 0 || nf > NF_MAX || (team != 12 && team != 18) || lpb < 1) return 1;
-  host_team_grid(n, team, lpb, miller_mixed_smem_bytes(nf, lpb),
+                      int32_t* out, long long n) {
+  if (nf < 0 || nf > NF_MAX) return 1;
+  host_team_grid(n, MM_TEAM, MM_LPB, miller_mixed_smem_bytes(nf),
                  [&](int tid, long long block, uint32_t* smem) {
-                   if (team == 12)
-                     miller_mixed_team<12>(tid, block, lpb, smem, px, py, qx, qy, fpx, fpy,
-                                           nf, lines, tails, out, n);
-                   else
-                     miller_mixed_team<18>(tid, block, lpb, smem, px, py, qx, qy, fpx, fpy,
-                                           nf, lines, tails, out, n);
+                   miller_mixed_team(tid, block, smem, px, py, qx, qy, fpx, fpy, nf, lines,
+                                     tails, out, n);
                  });
   return 0;
 }
 
-int host_final_exp(const int32_t* f, int32_t* out, long long n, int team, int lpb) {
-  if ((team != 12 && team != 18) || lpb < 1) return 1;
-  host_team_grid(n, team, lpb, final_exp_smem_bytes(lpb),
+int host_final_exp(const int32_t* f, int32_t* out, long long n) {
+  host_team_grid(n, FE_TEAM, FE_LPB, final_exp_smem_bytes(),
                  [&](int tid, long long block, uint32_t* smem) {
-                   if (team == 12)
-                     final_exp_team<12>(tid, block, lpb, smem, f, out, n);
-                   else
-                     final_exp_team<18>(tid, block, lpb, smem, f, out, n);
+                   final_exp_team(tid, block, smem, f, out, n);
                  });
   return 0;
 }

@@ -1,5 +1,5 @@
 // Kernels K3 (mixed Miller product) and K4 (final exponentiation) on a
-// team of TEAM threads per lane (TEAM = 12 or 18), with each lane's state in
+// team of TEAM threads per lane (K3 18, K4 12), with each lane's state in
 // shared memory and every product inlined into registers.
 //
 // Why a team: one thread per lane left three of four schedulers idle on
@@ -21,7 +21,7 @@
 // to the per-lane formulas of ops/pairing.py: a field element has one
 // reduced form, whatever the order of the products.
 //
-// Layout: a block holds lpb lanes of TEAM threads (thread r of lane l is
+// Layout: a block holds LPB lanes of TEAM threads (thread r of lane l is
 // threadIdx l * TEAM + r). Shared memory holds, per block, the fixed pairs'
 // line tables (staged once; every lane of the block reads the same rows),
 // then per lane its Fq12 values, a scratch area and (K3) the G2 slots, at a
@@ -48,6 +48,13 @@ inline thread_local std::barrier<>* team_barrier = nullptr;
 #define TAB_ROWS (4 * BN_MILLER_STEPS + 4)        // Fq2 rows per fixed pair
 #define TEAM_SCRATCH 18                           // Fq2 scratch slots per lane
 #define LINE_BLOCK 32  // int32 words of one (16, 2) line coefficient in a table
+
+// The kernels' shapes: threads per lane and lanes per block, chosen by
+// measurement on an H100 (PERF.md records the shapes tried).
+#define MM_TEAM 18  // K3
+#define MM_LPB 4
+#define FE_TEAM 12  // K4
+#define FE_LPB 8
 
 template <int TEAM>
 struct team_t {
@@ -233,13 +240,11 @@ enum {
 #define BN_HOST_DEVICE static inline
 #endif
 
-BN_HOST_DEVICE long long miller_mixed_smem_bytes(int nf, int lpb) {
-  return 4ll * ((long long)nf * TAB_ROWS * 16 + (long long)lpb * MM_LANE_WORDS);
+BN_HOST_DEVICE long long miller_mixed_smem_bytes(int nf) {
+  return 4ll * ((long long)nf * TAB_ROWS * 16 + (long long)MM_LPB * MM_LANE_WORDS);
 }
 
-BN_HOST_DEVICE long long final_exp_smem_bytes(int lpb) {
-  return 4ll * lpb * FE_LANE_WORDS;
-}
+BN_HOST_DEVICE long long final_exp_smem_bytes() { return 4ll * FE_LPB * FE_LANE_WORDS; }
 
 // ------------------------------------------------ K3 G2 product rounds
 
@@ -404,20 +409,20 @@ BN_INLINE void team_lines(const team_t<TEAM>& t, fq2* f, fq2* scratch, fq2* G, c
 
 // Thread ``tid`` of block ``block`` of kernel K3: the arguments of
 // pairing_cuda.py::miller_mixed (px null where there is no variable
-// pair), nf <= NF_MAX; smem as miller_mixed_smem_bytes(nf, lpb).
-template <int TEAM>
-BN_INLINE void miller_mixed_team(int tid, long long block, int lpb, uint32_t* smem,
-                                 const int32_t* px, const int32_t* py, const int32_t* qx,
-                                 const int32_t* qy, const int32_t* fpx, const int32_t* fpy,
-                                 int nf, const int32_t* lines, const int32_t* tails,
-                                 int32_t* out, long long n) {
+// pair), nf <= NF_MAX; smem as miller_mixed_smem_bytes(nf).
+BN_INLINE void miller_mixed_team(int tid, long long block, uint32_t* smem, const int32_t* px,
+                                 const int32_t* py, const int32_t* qx, const int32_t* qy,
+                                 const int32_t* fpx, const int32_t* fpy, int nf,
+                                 const int32_t* lines, const int32_t* tails, int32_t* out,
+                                 long long n) {
+  constexpr int TEAM = MM_TEAM;
   const team_t<TEAM> t = make_team<TEAM>(tid % TEAM);
-  const long long lane = block * lpb + tid / TEAM;
+  const long long lane = block * MM_LPB + tid / TEAM;
   const long long src = lane < n ? lane : n - 1;
   const bool has_var = px != nullptr;
   // the fixed pairs' line rows, converted to 32-bit limbs, once per block
   fq2* tab = (fq2*)smem;
-  for (int w = tid; w < nf * TAB_ROWS * 16; w += lpb * TEAM) {
+  for (int w = tid; w < nf * TAB_ROWS * 16; w += MM_LPB * TEAM) {
     const int row = w / 16, q = w % 16, j = row / TAB_ROWS, rr = row % TAB_ROWS;
     const int32_t* s = rr < 4 * BN_MILLER_STEPS
                            ? lines + ((long long)j * 4 * BN_MILLER_STEPS + rr) * LINE_BLOCK
@@ -515,12 +520,12 @@ BN_INLINE void team_fe_ladder(const team_t<TEAM>& t, fq2* acc, const fq2* e0, co
 
 // Thread ``tid`` of block ``block`` of kernel K4: f^((p^12 - 1) / r) by
 // the x-chain of pairing.cuh's per-lane form (ops/pairing.py::final_exp);
-// smem as final_exp_smem_bytes(lpb).
-template <int TEAM>
-BN_INLINE void final_exp_team(int tid, long long block, int lpb, uint32_t* smem,
-                              const int32_t* fin, int32_t* out, long long n) {
+// smem as final_exp_smem_bytes().
+BN_INLINE void final_exp_team(int tid, long long block, uint32_t* smem, const int32_t* fin,
+                              int32_t* out, long long n) {
+  constexpr int TEAM = FE_TEAM;
   const team_t<TEAM> t = make_team<TEAM>(tid % TEAM);
-  const long long lane = block * lpb + tid / TEAM;
+  const long long lane = block * FE_LPB + tid / TEAM;
   const long long src = lane < n ? lane : n - 1;
   fq2* base = (fq2*)(smem + (long long)(tid / TEAM) * FE_LANE_WORDS);
   fq2 *F = base, *U = base + 6, *V = base + 12, *M = base + 18, *A = base + 24,

@@ -90,7 +90,7 @@ def main(argv=None) -> int:
     ap.add_argument("--synthetic", action="store_true")
     ap.add_argument("--all-golden", action="store_true")
     ap.add_argument("--vk", default=None, help="SP1 circuit VK path")
-    ap.add_argument("--device", choices=["cpu", "cuda"], default="cpu")
+    ap.add_argument("--device", choices=["cpu", "cuda"], default="cuda")
     args = ap.parse_args(argv)
 
     if args.all_golden:

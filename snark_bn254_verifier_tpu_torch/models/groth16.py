@@ -99,7 +99,7 @@ class Groth16Verifier:
     _cache: dict = {}
 
     @staticmethod
-    def verify(proof: bytes, vk: bytes, public_inputs: Sequence[int], device="cpu") -> bool:
+    def verify(proof: bytes, vk: bytes, public_inputs: Sequence[int], device="cuda") -> bool:
         backend = TorchBackend(device)
         key = hashlib.sha256(vk).digest()
         ent = Groth16Verifier._cache.get(key)

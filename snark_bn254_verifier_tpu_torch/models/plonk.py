@@ -234,7 +234,7 @@ class PlonkVerifier:
     _vk_cache: dict = {}
 
     @staticmethod
-    def verify(proof: bytes, vk: bytes, public_inputs: Sequence[int], device="cpu") -> bool:
+    def verify(proof: bytes, vk: bytes, public_inputs: Sequence[int], device="cuda") -> bool:
         backend = TorchBackend(device)
         key = hashlib.sha256(vk).digest()
         vk_obj = PlonkVerifier._vk_cache.get(key)

@@ -34,7 +34,7 @@ class TorchBackend:
 
     name = "torch"
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cuda"):
         self.device = resolve_device(device)
 
     def _to_dev(self, arrays) -> tuple:

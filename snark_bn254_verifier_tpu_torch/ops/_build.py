@@ -140,12 +140,10 @@ class KernelLib:
 
 
 # One nvcc per compiled unit, all started together: (source, defines).
-# team_kernels.cu is built once per (team kernel, team size).
-TEAMS = (12, 18)
-UNITS = [("kernels.cu", ())] + [
-    ("team_kernels.cu", (f"-DBN_TEAM_KERNEL={k}", f"-DBN_TEAM={t}"))
-    for k in (3, 4) for t in TEAMS
-]
+# team_kernels.cu is built once per team kernel (K3, K4).
+UNITS = [("kernels.cu", ()),
+         ("team_kernels.cu", ("-DBN_TEAM_KERNEL=3",)),
+         ("team_kernels.cu", ("-DBN_TEAM_KERNEL=4",))]
 
 
 def _build_objects(nvcc: str) -> tuple:
@@ -198,16 +196,15 @@ def bind_kernels(lib_path: Path) -> ctypes.CDLL:
         "bn_init": [_N],
         "bn_mont_mul": [_P, _P, _P, _N, _I, _P],
         "bn_msm_affine": [_P, _P, _P, _P, _I, _P, _P, _P, _N, _P],
+        "bn_miller_mixed": [_P] * 6 + [_I, _P, _P, _P, _N, _P],
+        "bn_final_exp": [_P, _P, _N, _P],
         "bn_miller_product": [_P] * 4 + [_I, _P, _N, _P],
         "bn_mont_mul_attrs": [_P],
         "bn_msm_affine_attrs": [_P],
+        "bn_miller_mixed_attrs": [_P],
+        "bn_final_exp_attrs": [_P],
         "bn_miller_product_attrs": [_P],
     }
-    for t in TEAMS:
-        sigs[f"bn_miller_mixed_t{t}"] = [_P] * 6 + [_I, _P, _P, _P, _N, _I, _P]
-        sigs[f"bn_final_exp_t{t}"] = [_P, _P, _N, _I, _P]
-        sigs[f"bn_miller_mixed_attrs_t{t}"] = [_I, _P]
-        sigs[f"bn_final_exp_attrs_t{t}"] = [_I, _P]
     for fn, args in sigs.items():
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = _I
@@ -240,8 +237,8 @@ def load_host_check() -> ctypes.CDLL:
     lib.host_mont_mul.argtypes = [_P, _P, _P, _N, _I]
     lib.host_fq12_mul.argtypes = [_P, _P, _P, _N]
     lib.host_msm_affine.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _N]
-    lib.host_miller_mixed.argtypes = [_P] * 6 + [_I, _P, _P, _P, _N, _I, _I]
-    lib.host_final_exp.argtypes = [_P, _P, _N, _I, _I]
+    lib.host_miller_mixed.argtypes = [_P] * 6 + [_I, _P, _P, _P, _N]
+    lib.host_final_exp.argtypes = [_P, _P, _N]
     lib.host_miller_product.argtypes = [_P] * 4 + [_I, _P, _N]
     for fn in ("host_mont_mul", "host_fq12_mul", "host_msm_affine",
                "host_miller_mixed", "host_final_exp", "host_miller_product"):

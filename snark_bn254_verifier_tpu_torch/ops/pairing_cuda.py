@@ -13,8 +13,8 @@ its kernel, checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on its tensors' device and that
 device's current stream, raises on a CUDA error and counts its launches
 in ``<wrapper>.launches``. No wrapper pads the batch: the kernels mask
-the ragged edge. K3 and K4 run on a team of threads per lane, in the
-shape ``TEAM_SHAPE`` names.
+the ragged edge. K3 and K4 run on a team of threads per lane, at the
+shapes csrc/team.cuh fixes.
 """
 
 from __future__ import annotations
@@ -34,10 +34,6 @@ KERNEL_ENTRY_POINTS = ("mont_mul", "msm_affine", "miller_mixed", "final_exp",
                        "miller_product")
 
 
-# (threads per lane, lanes per block) of the team kernels K3 and K4
-# (csrc/team.cuh), chosen by measurement on an H100 (PERF.md);
-# chip_smoke.py times the shapes it tries by setting this.
-TEAM_SHAPE = {"miller_mixed": (18, 4), "final_exp": (12, 8)}
 NF_MAX = 2  # fixed pairs whose line tables K3 stages in shared memory
 
 
@@ -147,11 +143,9 @@ def miller_mixed(var_p, var_q, fixed_ps, lines, tails):
     out = torch.empty((NUM_LIMBS, 12, b), dtype=torch.int32, device=dev)
     if b == 0:
         return out
-    team, lpb = TEAM_SHAPE["miller_mixed"]
-    launch(dev, f"bn_miller_mixed_t{team}",
-           *[t.data_ptr() if t is not None else None for t in var],
+    launch(dev, "bn_miller_mixed", *[t.data_ptr() if t is not None else None for t in var],
            fpx.data_ptr(), fpy.data_ptr(), nf, lines.data_ptr(), tails.data_ptr(),
-           out.data_ptr(), b, lpb)
+           out.data_ptr(), b)
     miller_mixed.launches += 1
     return out
 
@@ -165,8 +159,7 @@ def final_exp(f):
     out = torch.empty_like(f)
     if f.shape[-1] == 0:
         return out
-    team, lpb = TEAM_SHAPE["final_exp"]
-    launch(f.device, f"bn_final_exp_t{team}", f.data_ptr(), out.data_ptr(), f.shape[-1], lpb)
+    launch(f.device, "bn_final_exp", f.data_ptr(), out.data_ptr(), f.shape[-1])
     final_exp.launches += 1
     return out
 

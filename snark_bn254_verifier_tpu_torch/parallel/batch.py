@@ -58,7 +58,7 @@ def resolve_device(device) -> torch.device:
 class Groth16BatchVerifier:
     """VK-specialised batched Groth16 verifier on one torch device."""
 
-    def __init__(self, vk_bytes: bytes, device="cpu"):
+    def __init__(self, vk_bytes: bytes, device="cuda"):
         self.device = resolve_device(device)
         self.vk = ser.load_groth16_verifying_key_from_bytes(vk_bytes)
         self.n_inputs = len(self.vk.k) - 1

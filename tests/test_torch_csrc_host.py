@@ -92,9 +92,8 @@ def test_msm_affine_lane_matches_oracle(lib):
         assert (None if oinf[lane] else (xs[lane], ys[lane])) == want
 
 
-@pytest.mark.parametrize("team", [12, 18])
-def test_final_exp_of_miller_mixed_lane_matches_oracle(lib, team):
-    """K3 then K4, each on a team of ``team`` threads, for one lane."""
+def test_final_exp_of_miller_mixed_lane_matches_oracle(lib):
+    """K3 then K4, each on its team, for one lane (a ragged block)."""
     rng = random.Random(54)
     q_fixed = [bn.g2_mul(bn.G2_GEN, rng.randrange(1, bn.R)) for _ in range(2)]
     lines, tails = LN.tables_from_numpy([LN.g2_line_table(q) for q in q_fixed])
@@ -109,9 +108,9 @@ def test_final_exp_of_miller_mixed_lane_matches_oracle(lib, team):
     fpy = c_tensor(np.stack([p[1] for p in fp]))
     f = torch.empty((16, 12, 1), dtype=torch.int32)
     assert lib.host_miller_mixed(ptr(px), ptr(py), ptr(qx), ptr(qy), ptr(fpx), ptr(fpy),
-                                 2, ptr(lines), ptr(tails), ptr(f), 1, team, 1) == 0
+                                 2, ptr(lines), ptr(tails), ptr(f), 1) == 0
     gt = torch.empty_like(f)
-    assert lib.host_final_exp(ptr(f), ptr(gt), 1, team, 1) == 0
+    assert lib.host_final_exp(ptr(f), ptr(gt), 1) == 0
     want = bn.pairing_batch([(fixed[0], q_fixed[0]), (fixed[1], q_fixed[1]), (vp, vq)])
     assert unpack_fq12(gt.numpy()) == [want]
 
@@ -141,11 +140,12 @@ def test_msm_affine_lane_combines_point_groups(lib):
         assert (None if oinf[lane] else (xs[lane], ys[lane])) == want
 
 
-@pytest.mark.parametrize("team,lpb", [(12, 3), (18, 2)])
-def test_miller_mixed_lanes_with_infinite_pairs_equal_plain_twin(lib, team, lpb):
+@pytest.mark.parametrize("n", [4, 6])
+def test_miller_mixed_lanes_with_infinite_pairs_equal_plain_twin(lib, n):
     """Infinite pairs go through the same calls as the others, with the
     line (1, 0, 0): the Miller value stays limb-equal to the plain twin.
-    Four lanes over blocks of ``lpb`` lanes: the last block is ragged."""
+    ``n`` lanes in blocks of MM_LPB = 4: one full block, then (n = 6) a
+    ragged one."""
     from snark_bn254_verifier_tpu_torch.ops import pairing as PR
 
     rng = random.Random(56)
@@ -154,10 +154,12 @@ def test_miller_mixed_lanes_with_infinite_pairs_equal_plain_twin(lib, team, lpb)
     lines, tails = lines.contiguous(), tails.contiguous()
     g1 = [bn.g1_mul(bn.G1_GEN, rng.randrange(1, bn.R)) for _ in range(4)]
     g2 = bn.g2_mul(bn.G2_GEN, rng.randrange(1, bn.R))
-    # lanes: all pairs finite; var P infinite; var Q infinite; both fixed P infinite
-    vp = [g1[0], None, g1[1], g1[2]]
-    vq = [g2, g2, None, g2]
-    fl = [[g1[3], g1[3], g1[0], None], [g1[1], g1[2], g1[3], None]]
+    # lanes: all pairs finite; var P infinite; var Q infinite; both fixed
+    # P infinite; then the same again
+    vp = [[g1[0], None, g1[1], g1[2]][i % 4] for i in range(n)]
+    vq = [[g2, g2, None, g2][i % 4] for i in range(n)]
+    fl = [[[g1[3], g1[3], g1[0], None][i % 4] for i in range(n)],
+          [[g1[1], g1[2], g1[3], None][i % 4] for i in range(n)]]
     var_p, var_q = (c_tensor(a) for a in pack_g1(vp)), (c_tensor(a) for a in pack_g2(vq))
     var_p, var_q = tuple(var_p), tuple(var_q)
     fixed = tuple(tuple(c_tensor(a) for a in pack_g1(l)) for l in fl)
@@ -168,9 +170,9 @@ def test_miller_mixed_lanes_with_infinite_pairs_equal_plain_twin(lib, team, lpb)
     qx, qy = (torch.where(skip, 0, t).contiguous() for t in var_q[:2])
     fpx = c_tensor(torch.stack([torch.where(inf, 0, x) for x, _, inf in fixed]))
     fpy = c_tensor(torch.stack([torch.where(inf, 0, y) for _, y, inf in fixed]))
-    f = torch.empty((16, 12, 4), dtype=torch.int32)
+    f = torch.empty((16, 12, n), dtype=torch.int32)
     assert lib.host_miller_mixed(ptr(px), ptr(py), ptr(qx), ptr(qy), ptr(fpx), ptr(fpy),
-                                 2, ptr(lines), ptr(tails), ptr(f), 4, team, lpb) == 0
+                                 2, ptr(lines), ptr(tails), ptr(f), n) == 0
     assert torch.equal(f, want)
 
 
@@ -213,10 +215,11 @@ def test_miller_product_lanes_with_infinite_pairs_equal_plain_twin(lib):
         assert torch.equal(out, acc.to(torch.int32)), k
 
 
-@pytest.mark.parametrize("team,lpb", [(12, 2), (18, 1)])
-def test_miller_mixed_fixed_only_equals_plain_twin(lib, team, lpb):
+@pytest.mark.parametrize("n", [3, 5])
+def test_miller_mixed_fixed_only_equals_plain_twin(lib, n):
     """K3 with no variable pair (PlonK's shape): null pointers for it, two
-    fixed pairs, one of them at infinity on lane 1."""
+    fixed pairs, one of them at infinity on lane 1. ``n`` lanes: a ragged
+    block alone, or after a full one."""
     from snark_bn254_verifier_tpu_torch.ops import pairing as PR
 
     rng = random.Random(58)
@@ -224,30 +227,33 @@ def test_miller_mixed_fixed_only_equals_plain_twin(lib, team, lpb):
     lines, tails = LN.tables_from_numpy([LN.g2_line_table(q) for q in q_fixed])
     lines, tails = lines.contiguous(), tails.contiguous()
     g1 = [bn.g1_mul(bn.G1_GEN, rng.randrange(1, bn.R)) for _ in range(3)]
-    fl = [[g1[0], None, g1[2]], [g1[1], g1[2], g1[0]]]
+    fl = [[[g1[0], None, g1[2]][i % 3] for i in range(n)],
+          [[g1[1], g1[2], g1[0]][i % 3] for i in range(n)]]
     fixed = tuple(tuple(c_tensor(a) for a in pack_g1(l)) for l in fl)
     want = PR.miller_mixed(None, None, fixed, lines, tails)
     fpx = c_tensor(torch.stack([torch.where(inf, 0, x) for x, _, inf in fixed]))
     fpy = c_tensor(torch.stack([torch.where(inf, 0, y) for _, y, inf in fixed]))
-    f = torch.empty((16, 12, 3), dtype=torch.int32)
+    f = torch.empty((16, 12, n), dtype=torch.int32)
     assert lib.host_miller_mixed(None, None, None, None, ptr(fpx), ptr(fpy), 2, ptr(lines),
-                                 ptr(tails), ptr(f), 3, team, lpb) == 0
+                                 ptr(tails), ptr(f), n) == 0
     assert torch.equal(f, want)
 
 
-@pytest.mark.parametrize("team,lpb", [(12, 2), (18, 3)])
-def test_final_exp_team_on_arbitrary_lanes_equals_plain_twin(lib, team, lpb):
+@pytest.mark.parametrize("n", [4, 9])
+def test_final_exp_team_on_arbitrary_lanes_equals_plain_twin(lib, n):
     """K4 on what a bad lane may hold: zero, one and random Fq12 values
-    (not in the cyclotomic subgroup), limb-equal to the plain twin."""
+    (not in the cyclotomic subgroup), limb-equal to the plain twin. ``n``
+    lanes in blocks of FE_LPB = 8: a ragged block alone, or after a full
+    one."""
     from snark_bn254_verifier_tpu_torch.ops import pairing as PR
 
     rng = np.random.default_rng(59)
-    limbs = rng.integers(0, 1 << 16, size=(16, 12, 4), dtype=np.int64)
-    limbs[15] = rng.integers(0, bn.P >> 240, size=(12, 4))
+    limbs = rng.integers(0, 1 << 16, size=(16, 12, n), dtype=np.int64)
+    limbs[15] = rng.integers(0, bn.P >> 240, size=(12, n))
     f = c_tensor(limbs.astype(np.int32))
     f[:, :, 0] = 0
     f[:, :, 1] = c_tensor(pack_fq12([bn.FQ12_ONE]))[:, :, 0]
     f = f.contiguous()
     out = torch.empty_like(f)
-    assert lib.host_final_exp(ptr(f), ptr(out), 4, team, lpb) == 0
+    assert lib.host_final_exp(ptr(f), ptr(out), n) == 0
     assert torch.equal(out, PR.final_exp(f).to(torch.int32))

@@ -29,6 +29,20 @@ def test_synthetic_groth16_on_cpu(monkeypatch, capsys):
     assert examples._verifier("groth16") is Groth16Verifier
 
 
+def test_device_defaults_to_cuda(monkeypatch):
+    devices = []
+
+    class Recorder:
+        @staticmethod
+        def verify(proof, vk, public_inputs, device):
+            devices.append(device)
+            return True
+
+    monkeypatch.setattr(examples, "_verifier", lambda mode: Recorder)
+    assert examples.main(["--synthetic", "--mode", "plonk"]) == 0
+    assert devices == ["cuda"]
+
+
 def test_golden_flows_report_missing_binaries(tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(examples, "GOLDEN_DIR", str(tmp_path))
     assert examples.main(["--golden", "--elf", "sha2", "--mode", "plonk", "--device", "cpu"]) == 1

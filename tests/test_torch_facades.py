@@ -99,6 +99,41 @@ def test_plonk_tampered_claimed_value_raises_the_oracle_error(plonk):
     assert got == want
 
 
+class _Stop(Exception):
+    pass
+
+
+@pytest.mark.parametrize("entry", ["Groth16Verifier.verify", "PlonkVerifier.verify",
+                                   "Groth16BatchVerifier", "TorchBackend"])
+def test_entry_points_default_to_the_card(g16, plonk, entry, monkeypatch):
+    """Without a device argument every entry point asks for "cuda": the CPU
+    runs only when the caller names it. The device resolver is replaced by
+    a recorder that stops the call, so nothing runs on either device."""
+    from snark_bn254_verifier_tpu_torch import Groth16BatchVerifier, TorchBackend
+    from snark_bn254_verifier_tpu_torch.models import torch_backend
+    from snark_bn254_verifier_tpu_torch.parallel import batch
+
+    asked = []
+
+    def recorder(device):
+        asked.append(device)
+        raise _Stop
+
+    monkeypatch.setattr(batch, "resolve_device", recorder)
+    monkeypatch.setattr(torch_backend, "resolve_device", recorder)
+    call = {
+        "Groth16Verifier.verify": lambda: Groth16Verifier.verify(g16.proof, g16.vk,
+                                                                 g16.public_inputs),
+        "PlonkVerifier.verify": lambda: PlonkVerifier.verify(plonk.proof, plonk.vk,
+                                                             plonk.public_inputs),
+        "Groth16BatchVerifier": lambda: Groth16BatchVerifier(g16.vk),
+        "TorchBackend": lambda: TorchBackend(),
+    }[entry]
+    with pytest.raises(_Stop):
+        call()
+    assert asked == ["cuda"]
+
+
 @pytest.mark.slow  # the JAX backend's XLA:CPU pairing and MSM compiles
 def test_same_outcomes_as_jax_backend(g16, plonk):
     wrong = [g16.public_inputs[0] + 1] + list(g16.public_inputs[1:])

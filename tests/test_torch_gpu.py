@@ -84,20 +84,18 @@ def test_msm_affine_kernel_more_points_than_a_group(cuda):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
-@pytest.mark.parametrize("shape", [(12, 8), (12, 3), (18, 4)])
-def test_miller_and_final_exp_kernels_equal_plain(cuda, shape, monkeypatch):
-    """K3 and K4 at a team shape (threads per lane, lanes per block); at
-    (6, 3) the last block of the batch of 32 is ragged."""
-    monkeypatch.setitem(PC.TEAM_SHAPE, "miller_mixed", shape)
-    monkeypatch.setitem(PC.TEAM_SHAPE, "final_exp", shape)
+@pytest.mark.parametrize("b", [B, B + 3])
+def test_miller_and_final_exp_kernels_equal_plain(cuda, b):
+    """K3 (4 lanes per block) and K4 (8): at B + 3 lanes the last block of
+    each is ragged."""
     rng = random.Random(63)
     q_fixed = [bn.g2_mul(bn.G2_GEN, rng.randrange(1, bn.R)) for _ in range(2)]
     lines, tails = LN.tables_from_numpy([LN.g2_line_table(q) for q in q_fixed], cuda)
     pool = points(rng, 4)
-    fixed = tuple(on(cuda, pack_g1([pool[(i + j) % 4] for i in range(B)])) for j in range(2))
+    fixed = tuple(on(cuda, pack_g1([pool[(i + j) % 4] for i in range(b)])) for j in range(2))
     vq_pool = [bn.g2_mul(bn.G2_GEN, rng.randrange(1, bn.R)) for _ in range(2)]
-    vp = on(cuda, pack_g1([pool[i % 4] if i else None for i in range(B)]))
-    vq = on(cuda, pack_g2([vq_pool[i % 2] for i in range(B)]))
+    vp = on(cuda, pack_g1([pool[i % 4] if i else None for i in range(b)]))
+    vq = on(cuda, pack_g2([vq_pool[i % 2] for i in range(b)]))
     for args in ((vp, vq, fixed), (None, None, fixed)):
         f = PC.miller_mixed(*args, lines, tails)
         assert torch.equal(f, PR.miller_mixed(*args, lines, tails))

@@ -153,31 +153,54 @@ def test_transcript_and_hash_to_field_equal():
         assert hp.sum() == hj.sum()
 
 
-@pytest.mark.parametrize("case", ["good", "wrong input value", "wrong input count"])
+def corrupt_byte(proof: bytes) -> bytes:
+    """The proof with one bit flipped inside its first G1 point (the case
+    chip_smoke.py runs on the card)."""
+    bad = bytearray(proof)
+    bad[40] ^= 0x01
+    return bytes(bad)
+
+
+@pytest.mark.parametrize("case", ["good", "wrong input value", "wrong input count",
+                                  "corrupted proof byte"])
 def test_verify_groth16_on_oracle_equal(case):
     vec = vector("groth16", "port")
     ins = list(vec.public_inputs)
     ins = {"good": ins, "wrong input value": [ins[0] + 1] + ins[1:],
-           "wrong input count": ins[:-1]}[case]
+           "wrong input count": ins[:-1], "corrupted proof byte": ins}[case]
+    proof_bytes = corrupt_byte(vec.proof) if case == "corrupted proof byte" else vec.proof
 
     def run(ser, mod):
         vk = ser.load_groth16_verifying_key_from_bytes(vec.vk)
-        proof = ser.load_groth16_proof_from_bytes(vec.proof)
+        proof = ser.load_groth16_proof_from_bytes(proof_bytes)
         return mod.verify_groth16(vk, proof, ins, backend="oracle")
 
     got, want = outcome(lambda: run(PS, PG16)), outcome(lambda: run(JS, JG16))
     assert got == want
     assert want[:2] == {"good": ("ok", "True"), "wrong input value": ("ok", "False"),
-                        "wrong input count": ("raises", "PrepareInputsFailedError")}[case]
+                        "wrong input count": ("raises", "PrepareInputsFailedError"),
+                        "corrupted proof byte": ("raises", "GroupError")}[case]
 
 
-@pytest.mark.parametrize("case", ["good", "tampered claimed value", "wrong input count"])
+@pytest.mark.parametrize("case", ["good", "tampered claimed value", "wrong input count",
+                                  "wrong input value", "corrupted proof byte",
+                                  "opening proof doubled"])
 def test_verify_plonk_on_oracle_equal(case):
     vec = vector("plonk", "port")
     ins = list(vec.public_inputs)
     proof = vec.proof
     if case == "wrong input count":
         ins = ins + [1]
+    if case == "wrong input value":
+        ins = [ins[0] + 1] + ins[1:]
+    if case == "corrupted proof byte":
+        proof = corrupt_byte(proof)
+    if case == "opening proof doubled":
+        # valid bytes that fail only in the final pairing check
+        h = JS.load_plonk_proof_from_bytes(proof).batched_proof.h
+        doubled = JS.g1_to_bytes(jbn.g1_mul(h, 2))
+        assert proof.count(JS.g1_to_bytes(h)) == 1
+        proof = proof.replace(JS.g1_to_bytes(h), doubled)
     if case == "tampered claimed value":
         # the first claimed value is checked before any pairing
         p = JS.load_plonk_proof_from_bytes(proof)
@@ -193,6 +216,9 @@ def test_verify_plonk_on_oracle_equal(case):
     got, want = outcome(lambda: run(PS, PPL)), outcome(lambda: run(JS, JPL))
     assert got == want
     assert (want == ("ok", "True")) == (case == "good")
+    if case in ("corrupted proof byte", "opening proof doubled"):
+        assert want[:2] == ("raises", {"corrupted proof byte": "GroupError",
+                                       "opening proof doubled": "PairingCheckFailedError"}[case])
 
 
 @pytest.fixture(scope="module")
