@@ -11,11 +11,12 @@ It builds the port's CUDA kernels from csrc/, then
      twin on the card (exact equality: integer field arithmetic) and a few
      lanes against the oracle, at the batched path's shapes (batch 1024,
      with edge lanes), then on inputs where about half the lanes take the
-     infinity or skip branches (and K2 on 9 points, more than one Straus
-     group), and times kernel and twin, each warm; then K2 (11 and 1 points), K4
-     and K5 (3 and 2 pairs) at batch one, the single-proof path's shapes,
-     exact against their twins and timed on those inputs; and computes
-     each kernel's bound from the work its twin counts on one lane;
+     infinity or skip branches (and K2 on 9 points), and times kernel and
+     twin, each warm; then K2 (11, 7, 2 and 1 points, every MSM of a PlonK
+     single), K4 and K5 (3 and 2 pairs) at batch one, the single-proof
+     path's shapes, exact against their twins and timed on those inputs;
+     and computes each kernel's bound from the work its twin counts on one
+     lane;
   2. drives the batched path, ``Groth16BatchVerifier(vk, device="cuda")``
      on a batch of 1024 proofs of the bench vector with bad lanes at fixed
      positions, checks the exact bool vector and that its kernels (K1-K4)
@@ -52,10 +53,11 @@ ITERS = 3     # warm slice runs timed
 SINGLE_ITERS = 10  # warm single-proof calls timed, per protocol
 SEED = 0
 CSRC = "snark_bn254_verifier_tpu_torch/csrc/"
-SOURCE = {"mont_mul": CSRC + "fp.cuh", "msm_affine": CSRC + "curve.cuh",
+SOURCE = {"mont_mul": CSRC + "fp.cuh", "msm_affine": CSRC + "msm.cuh",
           "miller_mixed": CSRC + "team.cuh", "final_exp": CSRC + "team.cuh",
-          "miller_product": CSRC + "pairing.cuh"}
-TEAM_KERNELS = ("miller_mixed", "final_exp")  # run on a team of threads per lane
+          "miller_product": CSRC + "team.cuh"}
+# run on a team of threads per lane
+TEAM_KERNELS = ("msm_affine", "miller_mixed", "final_exp", "miller_product")
 # The card's peaks for the bounds (NVIDIA's H100 SXM data sheet, and the
 # CUDA Programming Guide's throughput table for compute capability 9.0: 64
 # 32-bit integer multiply-adds per clock per SM, 132 SMs, 1.98 GHz boost).
@@ -311,15 +313,15 @@ def phase_msm_affine(ctx):
     pts, sc = msm_inputs(ctx, 3, p_inf=0.5, p_zero=0.25)
     _, e, _ = check_msm(ctx, "half the points infinite", pts, sc, list(range(8)))
     err = max(err, e)
-    # more points than one Straus group: partial sums are combined
+    # more points: nine threads' partial sums are combined
     pts, sc = msm_inputs(ctx, 9, p_inf=0.1)
     check_msm(ctx, "9 points", pts, sc, list(range(0, ctx.batch, ctx.batch // 16)), twin=False)
     out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": [3, 16, ctx.batch],
            **bnd}
-    # the single-proof path's shapes, batch one: PlonK's largest MSM (11
-    # points, three groups) and a g1_mul (1 point); timed on the inputs
-    # that were compared
-    for n in (11, 1):
+    # the single-proof path's shapes, batch one: every MSM of a PlonK
+    # single (11, 7, 2 and 1 points; a g1_mul is one point); timed on the
+    # inputs that were compared
+    for n in (11, 7, 2, 1):
         pts, sc = msm_inputs(ctx, n, b=1)
         args, e, out[f"plain_ms_b1_n{n}"] = check_msm(ctx, "single path", pts, sc, [0],
                                                       warm_up=False)
@@ -463,7 +465,7 @@ def phase_final_exp(ctx):
 def miller_product_inputs(ctx, n):
     """n (P, Q) pairs per lane from the pools. About half the lanes put
     one pair's P or Q at infinity; edge lanes: 0 every P infinite, 1 the
-    first Q infinite, 2 the last P infinite (in the last group for n > 4),
+    first Q infinite, 2 the last P infinite (in the second pass for n > 4),
     3 all finite, 4 the first pair infinite by its mask alone (its
     coordinates kept: the wrapper must zero them), 5 a pair and its
     negation on one Q (the product is one). Returns (ps, qs, masked):
@@ -508,7 +510,7 @@ def phase_miller_product(ctx):
 
     b = ctx.batch
     out = {"max_abs_err": 0, "shape": [3, 16, b]}
-    # n = 3: Groth16's generic product; 2: PlonK's KZG check; 5: two groups
+    # n = 3: Groth16's generic product; 2: PlonK's KZG check; 5: two passes
     for n in (3, 2, 5):
         ps, qs, masked = miller_product_inputs(ctx, n)
         P, Q = pack_pair_lanes(ctx, ps, qs, masked)
@@ -799,8 +801,8 @@ def run_single(iters: int):
 
 def kernel_attrs(lib) -> dict:
     """Registers, stack (local) bytes and shared bytes per thread block of
-    each kernel, from cudaFuncGetAttributes; K3 and K4 also report their
-    team shape (csrc/team.cuh)."""
+    each kernel, from cudaFuncGetAttributes; the team kernels K2-K5 also
+    report their team shape (csrc/msm.cuh, csrc/team.cuh)."""
     import ctypes
 
     from snark_bn254_verifier_tpu_torch.ops import _build

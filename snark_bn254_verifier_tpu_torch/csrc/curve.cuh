@@ -1,4 +1,4 @@
-// G1 Jacobian arithmetic and the per-lane windowed MSM of kernel K2.
+// G1 Jacobian arithmetic of kernel K2 (msm.cuh), one point per thread.
 //
 // Formulas and edge handling follow ops/curve.py: dbl-2009-l,
 // madd-2007-bl and add-2007-bl, where P == Q doubles, P == -Q gives
@@ -10,12 +10,12 @@
 
 #define MSM_WINDOW 4
 #define MSM_TABLE (1 << MSM_WINDOW)
-#define MSM_GROUP 4  // points per Straus pass: 4 x 16 entries x 96 B of local memory
 
 // The G1 functions are inlined into K2, so their branches on lane data
-// (infinity, P == +-Q) hold no __noinline__ call (see the rule in
-// tower.cuh): built __noinline__, K2 faulted whenever a warp's lanes
-// diverged through them.
+// (infinity, P == +-Q) hold no __noinline__ call and no barrier (see the
+// rule in tower.cuh): built __noinline__, K2 faulted whenever a warp's
+// lanes diverged through them. In K2's team the threads of a warp hold
+// different points, so they diverge there by design.
 
 struct g1j {
   fp x, y, z;
@@ -151,82 +151,14 @@ BN_INLINE void g1_add(g1j& r, const g1j& p, const g1j& q) {
   g1_add_core(r, h, rr, u1, s1, t, false);
 }
 
-// Jacobian -> affine with one Fermat inversion; infinity -> (0, 0, true).
-// Every lane inverts (a warp-uniform call): Fermat maps Z = 0 to 0, which
-// makes x = y = 0 at infinity without a branch.
+// Jacobian -> affine with one inversion; infinity -> (0, 0, true): the
+// inverse maps Z = 0 to 0, which makes x = y = 0 there without a branch.
 BN_INLINE void g1_to_affine(fp& x, fp& y, bool& inf, const g1j& p) {
   inf = fp_is_zero(p.z);
   fp zinv, zinv2, t;
-  fq_inv(zinv, p.z);
+  fq_inv_binary(zinv, p.z);
   fp_sq<FQ>(zinv2, zinv);
   fp_mul<FQ>(x, p.x, zinv2);
   fp_mul<FQ>(t, zinv, zinv2);
   fp_mul<FQ>(y, p.y, t);
-}
-
-// Jacobian sum_j sc_j * P_j over points first .. first + m - 1 of one
-// lane, m <= MSM_GROUP: windowed shared-doubling Straus with w = 4, as
-// _msm_windowed_kernel computes one chunk. A 16-entry Jacobian table per
-// point (even entries by doubling, odd by a mixed add), then per window,
-// high first, 4 shared doublings and one add per point of the entry its
-// digit selects; digit 0 selects the infinity entry.
-BN_INLINE void msm_group(g1j& acc, const int32_t* px, const int32_t* py,
-                         const uint8_t* pinf, const int32_t* sc, int first,
-                         int m, int64_t n, int64_t lane) {
-  g1j tbl[MSM_GROUP][MSM_TABLE];
-  fp scal[MSM_GROUP];
-  for (int j = 0; j < m; ++j) {
-    const int64_t pt = first + j;
-    fp x, y;
-    load_fp(x, px + pt * 16 * n + lane, n);
-    load_fp(y, py + pt * 16 * n + lane, n);
-    const bool inf = pinf[pt * n + lane] != 0;
-    load_fp(scal[j], sc + pt * 16 * n + lane, n);
-    g1_inf(tbl[j][0]);
-    tbl[j][1].x = x;
-    tbl[j][1].y = y;
-    if (inf)
-      fp_zero(tbl[j][1].z);
-    else
-      fp_one<FQ>(tbl[j][1].z);
-    for (int d = 2; d < MSM_TABLE; ++d) {
-      if (d % 2 == 0)
-        g1_dbl(tbl[j][d], tbl[j][d / 2]);
-      else
-        g1_add_mixed(tbl[j][d], tbl[j][d - 1], x, y, inf);
-    }
-  }
-  g1_inf(acc);
-  for (int win = 256 / MSM_WINDOW - 1; win >= 0; --win) {
-    for (int k = 0; k < MSM_WINDOW; ++k) g1_dbl(acc, acc);
-    const int bit = win * MSM_WINDOW;
-    for (int j = 0; j < m; ++j) {
-      const uint32_t dig = (scal[j].w[bit >> 5] >> (bit & 31)) & (MSM_TABLE - 1);
-      g1_add(acc, acc, tbl[j][dig]);
-    }
-  }
-}
-
-// One lane of kernel K2: sum_j sc_j * P_j for any npts >= 1.
-// px, py, sc: (npts, 16, n) limbs (sc canonical Fr); pinf: (npts, n).
-// Groups of MSM_GROUP points run one Straus pass each; their Jacobian
-// partials are summed, then one inversion gives the affine result, as
-// _jacobian_combine_kernel sums the chunks of _msm_windowed_kernel.
-BN_INLINE void msm_affine_lane(const int32_t* px, const int32_t* py,
-                               const uint8_t* pinf, const int32_t* sc, int npts,
-                               int32_t* ox, int32_t* oy, uint8_t* oinf,
-                               int64_t n, int64_t lane) {
-  g1j sum, part;
-  g1_inf(sum);
-  for (int first = 0; first < npts; first += MSM_GROUP) {
-    const int m = npts - first < MSM_GROUP ? npts - first : MSM_GROUP;
-    msm_group(part, px, py, pinf, sc, first, m, n, lane);
-    g1_add(sum, sum, part);
-  }
-  fp x, y;
-  bool inf;
-  g1_to_affine(x, y, inf, sum);
-  store_fp(ox + lane, n, x);
-  store_fp(oy + lane, n, y);
-  oinf[lane] = inf ? 1 : 0;
 }

@@ -1,6 +1,8 @@
-// Kernels K3 (mixed Miller product) and K4 (final exponentiation) on a
-// team of TEAM threads per lane (K3 18, K4 12), with each lane's state in
-// shared memory and every product inlined into registers.
+// Kernels K3 (mixed Miller product), K4 (final exponentiation) and K5
+// (Miller product of variable pairs) on a team of TEAM threads per lane
+// (K3 18, K4 12, K5 four chains of 18), with each lane's state in shared
+// memory and every product inlined into registers. K2's team (msm.cuh)
+// uses the barrier here.
 //
 // Why a team: one thread per lane left three of four schedulers idle on
 // the 32 SMs that a batch of 1024 lanes reached, and each lane's chain of
@@ -15,20 +17,23 @@
 // team of 6, one thread per coefficient, was slower on the H100 for both
 // kernels: PERF.md). A sparse line (w-coefficients 0, 1 and 3) is three
 // terms; the Granger-Scott cyclotomic squaring is nine Fq2 squarings over
-// the team, then a linear step. The G2 steps of the variable pair run as
-// rounds of independent Fq2 products (the *_OPS tables below, one product
-// per thread), with the few additions between rounds on one thread. Every value is fully reduced, so the outputs are limb-equal
-// to the per-lane formulas of ops/pairing.py: a field element has one
-// reduced form, whatever the order of the products.
+// the team, then a linear step. The G2 steps of a chain's variable pair
+// (K3 has one chain, K5 one per pair) run as rounds of independent Fq2
+// products (the *_OPS tables below, one product per thread), with the few
+// additions between rounds on one thread. Every value is fully reduced,
+// so the outputs are limb-equal to the per-lane formulas of
+// ops/pairing.py: a field element has one reduced form, whatever the
+// order of the products.
 //
 // Layout: a block holds LPB lanes of TEAM threads (thread r of lane l is
-// threadIdx l * TEAM + r). Shared memory holds, per block, the fixed pairs'
-// line tables (staged once; every lane of the block reads the same rows),
-// then per lane its Fq12 values, a scratch area and (K3) the G2 slots, at a
-// stride of an odd number of words so that the lanes of a warp fall on
-// different banks. The whole block meets at each barrier; the schedule
-// depends on no lane data, and the threads of lanes past the end run on the
-// last lane's inputs and store nothing.
+// threadIdx l * TEAM + r; K5's lane is MP_CHAINS such teams). Shared
+// memory holds, per block, the fixed pairs' line tables (K3; staged once,
+// every lane of the block reads the same rows), then per lane its Fq12
+// values, a scratch area and the G2 slots, at a stride of an odd number
+// of words so that the lanes of a warp fall on different banks. The whole
+// block meets at each barrier; the schedule depends on no lane data, and
+// the threads of lanes past the end run on the last lane's inputs and
+// store nothing.
 #pragma once
 
 #include "pairing.cuh"
@@ -55,6 +60,9 @@ inline thread_local std::barrier<>* team_barrier = nullptr;
 #define MM_LPB 4
 #define FE_TEAM 12  // K4
 #define FE_LPB 8
+#define MP_TEAM 18   // K5: threads per chain
+#define MP_CHAINS 4  // K5: chains per lane, one pair each
+#define MP_LPB 1
 
 template <int TEAM>
 struct team_t {
@@ -214,6 +222,15 @@ BN_INLINE void team_inv(const team_t<TEAM>& t, fq2* out, const fq2* x) {
   TEAM_SYNC();
 }
 
+// f = 1 (w-basis).
+template <int TEAM>
+BN_INLINE void team_set_one(const team_t<TEAM>& t, fq2* f) {
+  if (t.h == 0) {
+    fq2_zero(f[t.k]);
+    if (t.k == 0) fq2_one(f[0]);
+  }
+}
+
 // ------------------------------------------------------------ lane memory
 
 // Odd word strides per lane, so the lanes of a warp use different banks.
@@ -221,17 +238,21 @@ BN_INLINE void team_inv(const team_t<TEAM>& t, fq2* out, const fq2* x) {
 #define FE_LANE_WORDS ((FE_BUFS * 6 + TEAM_SCRATCH) * 16 + 1)
 
 enum {
-  // K3 per-lane Fq2 slots after f (6) and the scratch (12): the variable
-  // pair's T = (X, Y, Z) and Q, the last line (C0, C1, C3), P (c0 = xP,
-  // c1 = yP), its on flag, the add step's Q operand, the Frobenius images
-  // of Q, the fixed pairs' P, the lines' products at P (team_lines), and
-  // temporaries.
+  // A chain's Fq2 slots (K3's after f and the scratch; each K5 chain's):
+  // the variable pair's T = (X, Y, Z) and Q, the last line (C0, C1, C3),
+  // P (c0 = xP, c1 = yP), its on flag, the add step's Q operand, the
+  // Frobenius images of Q, the fixed pairs' P, the lines' products at P
+  // (team_lines), and temporaries.
   G_X, G_Y, G_Z, G_XQ, G_YQ, G_C0, G_C1, G_C3, G_P, G_ON, G_AQX, G_AQY,
   G_Q1X, G_Q1Y, G_Q2X, G_Q2Y, G_FP, G_L = G_FP + NF_MAX, G_T0 = G_L + 2 + NF_MAX,
   G_SLOTS = G_T0 + 16
 };
 #define MM_LANE_FQ2 (6 + TEAM_SCRATCH + G_SLOTS)
 #define MM_LANE_WORDS (MM_LANE_FQ2 * 16 + 1)
+// K5 per chain: its f, a partial product, the lane's product, scratch and
+// slots; per lane MP_CHAINS of them.
+#define MP_CHAIN_FQ2 (18 + TEAM_SCRATCH + G_SLOTS)
+#define MP_LANE_WORDS (MP_CHAINS * MP_CHAIN_FQ2 * 16 + 1)
 
 // Shared bytes of a block (the launches size it on the host).
 #if defined(__CUDACC__)
@@ -246,7 +267,9 @@ BN_HOST_DEVICE long long miller_mixed_smem_bytes(int nf) {
 
 BN_HOST_DEVICE long long final_exp_smem_bytes() { return 4ll * FE_LPB * FE_LANE_WORDS; }
 
-// ------------------------------------------------ K3 G2 product rounds
+BN_HOST_DEVICE long long miller_product_smem_bytes() { return 4ll * MP_LPB * MP_LANE_WORDS; }
+
+// ------------------------------------------------ G2 product rounds
 
 // One round: thread r < count computes slot out = slot a * slot b. No
 // round writes a slot it reads.
@@ -405,6 +428,75 @@ BN_INLINE void team_lines(const team_t<TEAM>& t, fq2* f, fq2* scratch, fq2* G, c
   }
 }
 
+// ---------------------------------------------------- the Miller schedule
+
+// The Miller schedule of f_{6x+2,Q}(P) with its two Frobenius lines, for
+// the variable pair in G (if has_var) and nf fixed pairs (P in G, lines
+// in tab) on one f chain: f = f * their Miller values. In exact
+// arithmetic the shared chain equals the product of the separate loops,
+// and every value is fully reduced, so f is limb-equal to the plain twins.
+// has_var and nf are the same on every thread of the block.
+template <int TEAM>
+BN_INLINE void team_miller(const team_t<TEAM>& t, fq2* f, fq2* scratch, fq2* G, bool has_var,
+                           const fq2* tab, int nf) {
+  // table rows per fixed pair: dbl c1, dbl c3, add c1, add c3 (STEPS
+  // each), then the tails' c1 (2) and c3 (2)
+  const int S = BN_MILLER_STEPS;
+#pragma unroll 1
+  for (int i = 0; i < S; ++i) {
+    team_mul(t, f, f, f, scratch);
+    if (has_var) team_dbl_step(t, G);
+    team_lines(t, f, scratch, G, tab, has_var, nf, i, S + i);
+    if (!MILLER_BITS[i]) continue;
+    if (has_var) team_add_step(t, G, G_XQ, G_YQ);
+    team_lines(t, f, scratch, G, tab, has_var, nf, 2 * S + i, 3 * S + i);
+  }
+  if (has_var) {  // Frobenius images of Q: q1 = pi(Q), q2 = -pi^2(Q)
+    if (t.lead) {
+      load_fq2_const(G[T_(0)], &TWIST_FROB[0]);
+      load_fq2_const(G[T_(1)], &TWIST_FROB[2 * NW]);
+      load_fq2_const(G[T_(2)], &TWIST_FROB[4 * NW]);
+      load_fq2_const(G[T_(3)], &TWIST_FROB[6 * NW]);
+      fq2_conj(G[T_(4)], G[G_XQ]);
+      fq2_conj(G[T_(5)], G[G_YQ]);
+    }
+    TEAM_SYNC();
+    team_products(t, G, FROB_OPS, 4);
+    if (t.lead) fq2_neg(G[G_Q2Y], G[G_Q2Y]);
+    TEAM_SYNC();
+  }
+  for (int k = 0; k < 2; ++k) {  // the correction lines, with the tails
+    if (has_var) team_add_step(t, G, k ? G_Q2X : G_Q1X, k ? G_Q2Y : G_Q1Y);
+    team_lines(t, f, scratch, G, tab, has_var, nf, 4 * S + k, 4 * S + 2 + k);
+  }
+}
+
+// A variable pair's slots from its inputs (pairing.cuh::var_pair_load).
+BN_INLINE void var_pair_put(fq2* G, const int32_t* px, const int32_t* py, const int32_t* qx,
+                            const int32_t* qy, long long n, long long src) {
+  var_pair v;
+  var_pair_load(v, px, py, qx, qy, n, src);
+  G[G_P].c0 = v.xp;
+  G[G_P].c1 = v.yp;
+  G[G_XQ] = v.xq;
+  G[G_YQ] = v.yq;
+  G[G_X] = v.t.x;
+  G[G_Y] = v.t.y;
+  G[G_Z] = v.t.z;
+  fq2_zero(G[G_ON]);
+  G[G_ON].c0.w[0] = v.on;
+}
+
+// (16, 12, n) output of a lane's Fq12 f: thread (k, 0) stores coefficient k.
+template <int TEAM>
+BN_INLINE void team_store_out(const team_t<TEAM>& t, int32_t* out, long long n, long long lane,
+                              const fq2* f) {
+  if (t.h == 0 && lane < n) {
+    store_fp(out + wcomp(t.k) * n + lane, 12 * n, f[t.k].c0);
+    store_fp(out + (wcomp(t.k) + 1) * n + lane, 12 * n, f[t.k].c1);
+  }
+}
+
 // ------------------------------------------------------------------ K3
 
 // Thread ``tid`` of block ``block`` of kernel K3: the arguments of
@@ -439,59 +531,58 @@ BN_INLINE void miller_mixed_team(int tid, long long block, uint32_t* smem, const
       load_fp(G[G_FP + j].c0, fpx + (long long)j * 16 * n + src, n);
       load_fp(G[G_FP + j].c1, fpy + (long long)j * 16 * n + src, n);
     }
-    if (has_var) {
-      var_pair v;
-      var_pair_load(v, px, py, qx, qy, n, src);
-      G[G_P].c0 = v.xp;
-      G[G_P].c1 = v.yp;
-      G[G_XQ] = v.xq;
-      G[G_YQ] = v.yq;
-      G[G_X] = v.t.x;
-      G[G_Y] = v.t.y;
-      G[G_Z] = v.t.z;
-      fq2_zero(G[G_ON]);
-      G[G_ON].c0.w[0] = v.on;
-    }
+    if (has_var) var_pair_put(G, px, py, qx, qy, n, src);
   }
-  if (t.h == 0) {
-    fq2_zero(f[t.k]);
-    if (t.k == 0) fq2_one(f[0]);
-  }
+  team_set_one(t, f);
   TEAM_SYNC();
-  // table rows per fixed pair: dbl c1, dbl c3, add c1, add c3 (STEPS
-  // each), then the tails' c1 (2) and c3 (2)
-  const int S = BN_MILLER_STEPS;
+  team_miller(t, f, scratch, G, has_var, tab, nf);
+  team_store_out(t, out, n, lane, f);
+}
+
+// ------------------------------------------------------------------ K5
+
+// Thread ``tid`` of block ``block`` of kernel K5: the product over
+// npairs >= 1 variable pairs, px, py (npairs, 16, n) and qx, qy
+// (npairs, 16, 2, n), of their Miller values, as (16, 12, n). A lane has
+// MP_CHAINS teams of MP_TEAM threads, each running K3's schedule on one
+// pair with its own f chain (a chain with no pair left runs pair 0 with
+// its lines set to one); then every team forms f_0 f_1 f_2 f_3 as
+// (f_c f_{c^1}) (f_{c^2} f_{c^3}) and multiplies it into the lane's
+// product, MP_CHAINS pairs at a time (the work of the TPU's
+// _fq12_product_kernel). In exact arithmetic that is the twin's product of
+// separate loops, so the output is limb-equal to
+// ops/pairing.py::miller_product. smem as miller_product_smem_bytes().
+BN_INLINE void miller_product_team(int tid, long long block, uint32_t* smem, const int32_t* px,
+                                   const int32_t* py, const int32_t* qx, const int32_t* qy,
+                                   int npairs, int32_t* out, long long n) {
+  constexpr int TEAM = MP_TEAM;
+  static_assert(MP_CHAINS == 4, "the product pairs chains c and c^1, then c and c^2");
+  const team_t<TEAM> t = make_team<TEAM>(tid % TEAM);
+  const int chain = (tid / TEAM) % MP_CHAINS, slot = tid / (TEAM * MP_CHAINS);
+  const long long lane = block * MP_LPB + slot;
+  const long long src = lane < n ? lane : n - 1;
+  fq2* base = (fq2*)(smem + (long long)slot * MP_LANE_WORDS);
+  fq2* f = base + chain * MP_CHAIN_FQ2;
+  fq2 *g = f + 6, *acc = f + 12, *scratch = f + 18, *G = scratch + TEAM_SCRATCH;
 #pragma unroll 1
-  for (int i = 0; i < S; ++i) {
-    team_mul(t, f, f, f, scratch);
-    if (has_var) team_dbl_step(t, G);
-    team_lines(t, f, scratch, G, tab, has_var, nf, i, S + i);
-    if (!MILLER_BITS[i]) continue;
-    if (has_var) team_add_step(t, G, G_XQ, G_YQ);
-    team_lines(t, f, scratch, G, tab, has_var, nf, 2 * S + i, 3 * S + i);
-  }
-  if (has_var) {  // Frobenius images of Q: q1 = pi(Q), q2 = -pi^2(Q)
+  for (int first = 0; first < npairs; first += MP_CHAINS) {
+    const long long j = first + chain < npairs ? first + chain : 0;
     if (t.lead) {
-      load_fq2_const(G[T_(0)], &TWIST_FROB[0]);
-      load_fq2_const(G[T_(1)], &TWIST_FROB[2 * NW]);
-      load_fq2_const(G[T_(2)], &TWIST_FROB[4 * NW]);
-      load_fq2_const(G[T_(3)], &TWIST_FROB[6 * NW]);
-      fq2_conj(G[T_(4)], G[G_XQ]);
-      fq2_conj(G[T_(5)], G[G_YQ]);
+      var_pair_put(G, px + j * 16 * n, py + j * 16 * n, qx + j * 32 * n, qy + j * 32 * n, n,
+                   src);
+      if (first + chain >= npairs) G[G_ON].c0.w[0] = 0;
     }
+    team_set_one(t, f);
     TEAM_SYNC();
-    team_products(t, G, FROB_OPS, 4);
-    if (t.lead) fq2_neg(G[G_Q2Y], G[G_Q2Y]);
-    TEAM_SYNC();
+    team_miller(t, f, scratch, G, true, nullptr, 0);
+    team_mul(t, g, f, base + (chain ^ 1) * MP_CHAIN_FQ2, scratch);
+    team_mul(t, f, g, base + (chain ^ 2) * MP_CHAIN_FQ2 + 6, scratch);
+    if (first)
+      team_mul(t, acc, acc, f, scratch);
+    else
+      team_conj(t, acc, f, false);
   }
-  for (int k = 0; k < 2; ++k) {  // the correction lines, with the tails
-    if (has_var) team_add_step(t, G, k ? G_Q2X : G_Q1X, k ? G_Q2Y : G_Q1Y);
-    team_lines(t, f, scratch, G, tab, has_var, nf, 4 * S + k, 4 * S + 2 + k);
-  }
-  if (t.h == 0 && lane < n) {
-    store_fp(out + wcomp(t.k) * n + lane, 12 * n, f[t.k].c0);
-    store_fp(out + (wcomp(t.k) + 1) * n + lane, 12 * n, f[t.k].c1);
-  }
+  if (chain == 0) team_store_out(t, out, n, lane, acc);
 }
 
 // ------------------------------------------------------------------ K4
@@ -519,8 +610,7 @@ BN_INLINE void team_fe_ladder(const team_t<TEAM>& t, fq2* acc, const fq2* e0, co
 }
 
 // Thread ``tid`` of block ``block`` of kernel K4: f^((p^12 - 1) / r) by
-// the x-chain of pairing.cuh's per-lane form (ops/pairing.py::final_exp);
-// smem as final_exp_smem_bytes().
+// the x-chain (ops/pairing.py::final_exp); smem as final_exp_smem_bytes().
 BN_INLINE void final_exp_team(int tid, long long block, uint32_t* smem, const int32_t* fin,
                               int32_t* out, long long n) {
   constexpr int TEAM = FE_TEAM;
@@ -565,8 +655,5 @@ BN_INLINE void final_exp_team(int tid, long long block, uint32_t* smem, const in
   team_mul(t, F, F, U, S);
   team_frobenius(t, U, M, 3);
   team_mul(t, F, F, U, S);
-  if (t.h == 0 && lane < n) {
-    store_fp(out + wcomp(t.k) * n + lane, 12 * n, F[t.k].c0);
-    store_fp(out + (wcomp(t.k) + 1) * n + lane, 12 * n, F[t.k].c1);
-  }
+  team_store_out(t, out, n, lane, F);
 }

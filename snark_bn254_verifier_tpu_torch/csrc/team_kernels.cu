@@ -1,18 +1,33 @@
-// Kernel K3 (miller_mixed) or K4 (final_exp) at its team shape (team.cuh:
-// MM_TEAM x MM_LPB, FE_TEAM x FE_LPB), with a plain C interface loaded
-// through ctypes. ops/_build.py compiles this file once per kernel,
-// -DBN_TEAM_KERNEL=3 or 4, each by its own nvcc, all at once: the team
-// bodies inline every product, and one compilation of both kernels takes
-// minutes. Each build exports bn_<kernel> and bn_<kernel>_attrs.
+// The team kernels K2 (msm_affine), K3 (miller_mixed), K4 (final_exp) and
+// K5 (miller_product), each at its team shape (msm.cuh: MSM_TEAM x
+// MSM_LPB; team.cuh: MM_TEAM x MM_LPB, FE_TEAM x FE_LPB, MP_TEAM x
+// MP_CHAINS x MP_LPB), with a plain C interface loaded through ctypes.
+// ops/_build.py compiles this file once per kernel, -DBN_TEAM_KERNEL=2, 3,
+// 4 or 5, each by its own nvcc, all at once: the team bodies inline every
+// product, and one compilation of all of them takes minutes. Each build
+// exports bn_<kernel> and bn_<kernel>_attrs.
 //
+//   K2 msm_affine      pairing_pallas.py:206 _msm_windowed_kernel
+//                      + pairing_pallas.py:271 _jacobian_combine_kernel
 //   K3 miller_mixed    pairing_pallas.py:99 _miller_mixed_kernel
 //   K4 final_exp       pairing_pallas.py:179 _fe_easy_expx_kernel
 //                      + pairing_pallas.py:191 _fe_combine_kernel
+//   K5 miller_product  pairing_pallas.py:84 _miller_kernel
+//                      + pairing_pallas.py:171 _fq12_product_kernel
 //
-// What bounds them, and the design, are in team.cuh.
+// What bounds them, and the designs, are in msm.cuh and team.cuh. K2 and
+// K5 run the rolled form of the Montgomery product (fp.cuh), which was
+// faster for them on the H100. K4 keeps the unrolled one, which was faster
+// for it at batch one (PERF.md). K3 keeps it too, though the rolled form
+// measured faster for K3 as well: that is a choice of scope, not of
+// measurement, and K3 takes the rolled form when its code next changes
+// (the rule then being "all but K4").
 #include <cuda_runtime.h>
 
-#include "team.cuh"
+#if BN_TEAM_KERNEL == 2 || BN_TEAM_KERNEL == 5
+#define BN_ROLLED_CIOS 1
+#endif
+#include "msm.cuh"
 
 // Launches ``kernel`` over n lanes, lpb lanes of team threads a block,
 // with smem bytes of dynamic shared memory (above 48 KB only once allowed).
@@ -43,7 +58,28 @@ static int kernel_attrs(Kernel kernel, int team, int lpb, long long smem, int* o
   return 0;
 }
 
-#if BN_TEAM_KERNEL == 3
+#if BN_TEAM_KERNEL == 2
+
+static __global__ void msm_affine_kernel(const int32_t* px, const int32_t* py,
+                                         const uint8_t* pinf, const int32_t* sc, int npts,
+                                         int32_t* ox, int32_t* oy, uint8_t* oinf, long long n) {
+  extern __shared__ uint32_t smem[];
+  msm_affine_team(threadIdx.x, blockIdx.x, smem, px, py, pinf, sc, npts, ox, oy, oinf, n);
+}
+
+extern "C" int bn_msm_affine(const int32_t* px, const int32_t* py, const uint8_t* pinf,
+                             const int32_t* sc, int npts, int32_t* ox, int32_t* oy,
+                             uint8_t* oinf, long long n, void* stream) {
+  if (npts < 1) return (int)cudaErrorInvalidValue;
+  return launch_team(msm_affine_kernel, MSM_TEAM, MSM_LPB, msm_affine_smem_bytes(), n,
+                     (cudaStream_t)stream, px, py, pinf, sc, npts, ox, oy, oinf);
+}
+
+extern "C" int bn_msm_affine_attrs(int* out) {
+  return kernel_attrs(msm_affine_kernel, MSM_TEAM, MSM_LPB, msm_affine_smem_bytes(), out);
+}
+
+#elif BN_TEAM_KERNEL == 3
 
 static __global__ void miller_mixed_kernel(const int32_t* px, const int32_t* py,
                                            const int32_t* qx, const int32_t* qy,
@@ -86,6 +122,29 @@ extern "C" int bn_final_exp_attrs(int* out) {
   return kernel_attrs(final_exp_kernel, FE_TEAM, FE_LPB, final_exp_smem_bytes(), out);
 }
 
+#elif BN_TEAM_KERNEL == 5
+
+static __global__ void miller_product_kernel(const int32_t* px, const int32_t* py,
+                                             const int32_t* qx, const int32_t* qy, int npairs,
+                                             int32_t* out, long long n) {
+  extern __shared__ uint32_t smem[];
+  miller_product_team(threadIdx.x, blockIdx.x, smem, px, py, qx, qy, npairs, out, n);
+}
+
+extern "C" int bn_miller_product(const int32_t* px, const int32_t* py, const int32_t* qx,
+                                 const int32_t* qy, int npairs, int32_t* out, long long n,
+                                 void* stream) {
+  if (npairs < 1) return (int)cudaErrorInvalidValue;
+  return launch_team(miller_product_kernel, MP_TEAM * MP_CHAINS, MP_LPB,
+                     miller_product_smem_bytes(), n, (cudaStream_t)stream, px, py, qx, qy,
+                     npairs, out);
+}
+
+extern "C" int bn_miller_product_attrs(int* out) {
+  return kernel_attrs(miller_product_kernel, MP_TEAM * MP_CHAINS, MP_LPB,
+                      miller_product_smem_bytes(), out);
+}
+
 #else
-#error "build with -DBN_TEAM_KERNEL=3 or 4"
+#error "build with -DBN_TEAM_KERNEL=2, 3, 4 or 5"
 #endif

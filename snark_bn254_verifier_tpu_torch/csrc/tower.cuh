@@ -2,11 +2,11 @@
 // Fq6 = Fq2[v]/(v^3 - XI), Fq12 = Fq6[w]/(w^2 - v), XI = 9 + u.
 //
 // Formulas are those of ops/tower.py (and of the JAX package's tower), so
-// each product matches its plain twin limb for limb. Multiplies, squarings
-// and inversions are __noinline__: inlined, an Fq12 product expands to
-// ~54 CIOS products and the Miller/final-exponentiation kernels would
-// spend nvcc's time and the register file on copies of it. Every
-// function tolerates its output aliasing an input.
+// each product matches its plain twin limb for limb. The team kernels
+// (team.cuh) inline their Fq2 products (fq2_mul_in) and split each Fq12
+// product over the team; the __noinline__ Fq2/Fq6 products and the
+// inversions here serve K4's once-per-lane Fq12 inverse. Every function
+// tolerates its output aliasing an input.
 //
 // Rule for the kernels: every lane of a warp makes the same __noinline__
 // calls. No such call sits under a branch on lane data; a lane that has
@@ -124,12 +124,6 @@ BN_NOINLINE void fq2_inv(fq2& r, const fq2& a) {
 
 // ---------------------------------------------------------------- Fq6
 
-BN_INLINE void fq6_add(fq6& r, const fq6& a, const fq6& b) {
-  fq2_add(r.c0, a.c0, b.c0);
-  fq2_add(r.c1, a.c1, b.c1);
-  fq2_add(r.c2, a.c2, b.c2);
-}
-
 BN_INLINE void fq6_sub(fq6& r, const fq6& a, const fq6& b) {
   fq2_sub(r.c0, a.c0, b.c0);
   fq2_sub(r.c1, a.c1, b.c1);
@@ -209,49 +203,6 @@ BN_NOINLINE void fq6_inv(fq6& r, const fq6& a) {
 
 // --------------------------------------------------------------- Fq12
 
-BN_INLINE void fq12_one(fq12& r) {
-  fq2_one(r.c0.c0);
-  fq2_zero(r.c0.c1);
-  fq2_zero(r.c0.c2);
-  fq2_zero(r.c1.c0);
-  fq2_zero(r.c1.c1);
-  fq2_zero(r.c1.c2);
-}
-
-BN_INLINE void fq12_conj(fq12& r, const fq12& a) {
-  r.c0 = a.c0;
-  fq6_neg(r.c1, a.c1);
-}
-
-BN_NOINLINE void fq12_mul(fq12& r, const fq12& a, const fq12& b) {
-  fq6 t0, t1, x, y;
-  fq6_mul(t0, a.c0, b.c0);
-  fq6_mul(t1, a.c1, b.c1);
-  fq6_add(x, a.c0, a.c1);
-  fq6_add(y, b.c0, b.c1);
-  fq6_mul(x, x, y);
-  // c1 = (a0 + a1)(b0 + b1) - t0 - t1; c0 = t0 + v t1
-  fq6_add(y, t0, t1);
-  fq6_sub(r.c1, x, y);
-  fq6_mul_by_v(t1, t1);
-  fq6_add(r.c0, t0, t1);
-}
-
-// Complex squaring: t = a0 a1, s = (a0 + a1)(a0 + v a1);
-// c0 = s - t - v t, c1 = 2t.
-BN_NOINLINE void fq12_sq(fq12& r, const fq12& a) {
-  fq6 t, s, x, y;
-  fq6_mul(t, a.c0, a.c1);
-  fq6_add(x, a.c0, a.c1);
-  fq6_mul_by_v(y, a.c1);
-  fq6_add(y, a.c0, y);
-  fq6_mul(s, x, y);
-  fq6_sub(s, s, t);
-  fq6_mul_by_v(x, t);
-  fq6_sub(r.c0, s, x);
-  fq6_add(r.c1, t, t);
-}
-
 BN_NOINLINE void fq12_inv(fq12& r, const fq12& a) {
   fq6 s0, s1, t;
   fq6_mul(s0, a.c0, a.c0);
@@ -263,14 +214,6 @@ BN_NOINLINE void fq12_inv(fq12& r, const fq12& a) {
   fq6_mul(s1, a.c1, t);
   r.c0 = s0;
   fq6_neg(r.c1, s1);
-}
-
-BN_INLINE bool fq12_eq(const fq12& a, const fq12& b) {
-  const fp* x = &a.c0.c0.c0;
-  const fp* y = &b.c0.c0.c0;
-  bool eq = true;
-  for (int i = 0; i < 12; ++i) eq = eq && fp_eq(x[i], y[i]);
-  return eq;
 }
 
 BN_INLINE void load_fq2_const(fq2& r, const uint32_t* words) {
@@ -285,15 +228,4 @@ BN_INLINE void load_fq2_const(fq2& r, const uint32_t* words) {
 BN_INLINE fq2& fq12_wcoeff(fq12& a, int i) {
   fq6& half = (i & 1) ? a.c1 : a.c0;
   return i < 2 ? half.c0 : (i < 4 ? half.c1 : half.c2);
-}
-
-// (16, 12, n) limb tensor <-> Fq12: component 6h + 2j + c.
-BN_INLINE void load_fq12(fq12& r, const int32_t* p, int64_t n) {
-  fp* out = &r.c0.c0.c0;
-  for (int c = 0; c < 12; ++c) load_fp(out[c], p + c * n, 12 * n);
-}
-
-BN_INLINE void store_fq12(int32_t* p, int64_t n, const fq12& a) {
-  const fp* x = &a.c0.c0.c0;
-  for (int c = 0; c < 12; ++c) store_fp(p + c * n, 12 * n, x[c]);
 }

@@ -32,7 +32,7 @@ CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 CONSTS_HEADER = "bn254_consts.h"
 CUDA_ARCH = "-gencode=arch=compute_90a,code=sm_90a"
-STACK_BYTES = 16384  # per-thread stack for the __noinline__ call chains of K2, K4's inverse and K5
+STACK_BYTES = 16384  # per-thread stack for the __noinline__ call chain of K4's Fq12 inverse
 
 _P = ctypes.c_void_p
 _N = ctypes.c_longlong
@@ -41,8 +41,9 @@ _I = ctypes.c_int
 
 def consts_header() -> str:
     """The kernels' constants, derived from the oracle: moduli, Montgomery
-    constants (R = 2^256, n0' = -p^-1 mod 2^32), the Fq inversion exponent,
-    Frobenius coefficients (Montgomery form) and the loop bit schedules."""
+    constants (R = 2^256, n0' = -p^-1 mod 2^32, R^3 mod p), the Fq
+    inversion exponent, Frobenius coefficients (Montgomery form) and the
+    loop bit schedules."""
 
     def words(v):
         return ", ".join(f"0x{w:08x}u" for w in int_to_words(v))
@@ -73,6 +74,7 @@ def consts_header() -> str:
         f"BN_CONST uint32_t FQ_MOD[8] = {{{words(bn.P)}}};",
         f"BN_CONST uint32_t FQ_ONE[8] = {{{words(FQ.r_mod)}}};",
         f"BN_CONST uint32_t FQ_PM2[8] = {{{words(bn.P - 2)}}};",
+        f"BN_CONST uint32_t FQ_R3[8] = {{{words(pow(2, 768, bn.P))}}};",
         f"BN_CONST uint32_t FR_MOD[8] = {{{words(bn.R)}}};",
         f"BN_CONST uint32_t FR_ONE[8] = {{{words(FR.r_mod)}}};",
         "// gamma_{power,i} = XI^(i (p^power - 1) / 6), power 1..3, i 0..5",
@@ -139,26 +141,41 @@ class KernelLib:
     build_log: str   # nvcc/ptxas output of that build ("" if cached)
 
 
+def team_unit(k: int) -> tuple:
+    """The unit of team kernel K<k>: team_kernels.cu with -DBN_TEAM_KERNEL=k."""
+    return ("team_kernels.cu", (f"-DBN_TEAM_KERNEL={k}",))
+
+
 # One nvcc per compiled unit, all started together: (source, defines).
-# team_kernels.cu is built once per team kernel (K3, K4).
-UNITS = [("kernels.cu", ()),
-         ("team_kernels.cu", ("-DBN_TEAM_KERNEL=3",)),
-         ("team_kernels.cu", ("-DBN_TEAM_KERNEL=4",))]
+# team_kernels.cu is built once per team kernel (K2-K5).
+UNITS = [("kernels.cu", ())] + [team_unit(k) for k in (2, 3, 4, 5)]
+OBJ_DIR = BUILD_DIR / "obj"
 
 
-def _build_objects(nvcc: str) -> tuple:
-    """Compile every unit of UNITS into an object, in parallel; returns
-    (objects, their ptxas reports)."""
-    obj_dir = BUILD_DIR / "obj"
+def unit_object(obj_dir: Path, unit) -> Path:
+    src, defines = unit
+    return obj_dir / ("_".join([Path(src).stem] + [d.split("=")[-1] for d in defines]) + ".o")
+
+
+def start_units(nvcc: str, csrc: Path, obj_dir: Path, units) -> list:
+    """Start one nvcc per unit of ``units`` (sources in ``csrc``, objects
+    into ``obj_dir``); returns [(cmd, object, process)] for finish_units."""
     obj_dir.mkdir(parents=True, exist_ok=True)
     procs = []
-    for src, defines in UNITS:
-        obj = obj_dir / ("_".join([Path(src).stem] + [d.split("=")[-1] for d in defines]) + ".o")
+    for unit in units:
+        src, defines = unit
+        obj = unit_object(obj_dir, unit)
         cmd = [nvcc, CUDA_ARCH, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", *defines, "-I", str(BUILD_DIR), "-I", str(CSRC),
-               str(CSRC / src), "-o", str(obj)]
+               "-Xptxas", "-v", *defines, "-I", str(BUILD_DIR), "-I", str(csrc),
+               str(csrc / src), "-o", str(obj)]
         procs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                  stderr=subprocess.STDOUT, text=True)))
+    return procs
+
+
+def finish_units(procs) -> tuple:
+    """Wait for start_units' compilers; returns (objects, their ptxas
+    reports). Raises on a failed unit."""
     t0, logs = time.perf_counter(), []
     for cmd, obj, proc in procs:
         out = proc.communicate()[0]
@@ -166,6 +183,11 @@ def _build_objects(nvcc: str) -> tuple:
             raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n{out}")
         logs.append(f"{obj.name}: done after {time.perf_counter() - t0:.1f} s\n{out}")
     return [obj for _, obj, _ in procs], "".join(logs)
+
+
+def link_library(nvcc: str, objects, lib_path: Path) -> str:
+    """Link compiled units into the shared kernel library ``lib_path``."""
+    return _compile([nvcc, CUDA_ARCH, "-shared"] + [str(o) for o in objects], lib_path)
 
 
 @functools.lru_cache(maxsize=None)
@@ -178,8 +200,8 @@ def load_kernels() -> KernelLib:
     log = ""
     if _stale(lib_path, inputs):
         nvcc = find_nvcc()
-        objects, log = _build_objects(nvcc)
-        log += _compile([nvcc, CUDA_ARCH, "-shared"] + [str(o) for o in objects], lib_path)
+        objects, log = finish_units(start_units(nvcc, CSRC, OBJ_DIR, UNITS))
+        log += link_library(nvcc, objects, lib_path)
         (BUILD_DIR / "nvcc.log").write_text(log)
     build_s = time.perf_counter() - t0 if log else 0.0
     return KernelLib(bind_kernels(lib_path), build_s, log)
@@ -219,28 +241,32 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def load_host_check() -> ctypes.CDLL:
+def load_host_check(rolled: bool = False) -> ctypes.CDLL:
     """Build the kernels' headers with the host C++ compiler into a test
-    library (csrc/host_check.cc) and load it."""
+    library (csrc/host_check.cc) and load it; ``rolled`` builds it with
+    the rolled Montgomery product (-DBN_ROLLED_CIOS=1), the form that
+    team_kernels.cu gives K2 and K5."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         raise RuntimeError("no host C++ compiler")
     build_dir = BUILD_DIR / "host"
     consts = _write_consts(build_dir)
-    lib_path = build_dir / "libbn254_host_check.so"
+    lib_path = build_dir / f"libbn254_host_check{'_rolled' if rolled else ''}.so"
     src = CSRC / "host_check.cc"
     inputs = [src, consts] + sorted(CSRC.glob("*.cuh"))
     if _stale(lib_path, inputs):
         _compile([cxx, "-O1", "-std=c++20", "-pthread", "-shared", "-fPIC",
+                  f"-DBN_ROLLED_CIOS={int(rolled)}",
                   "-I", str(build_dir), "-I", str(CSRC), str(src)], lib_path)
     lib = ctypes.CDLL(str(lib_path))
-    lib.host_mont_mul.argtypes = [_P, _P, _P, _N, _I]
-    lib.host_fq12_mul.argtypes = [_P, _P, _P, _N]
+    lib.host_mont_mul.argtypes = [_P, _P, _P, _N, _I, _I]
+    lib.host_fq_inv.argtypes = [_P, _P, _N, _I]
+    lib.host_fq12_mul.argtypes = [_P, _P, _P, _N, _I]
     lib.host_msm_affine.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _N]
     lib.host_miller_mixed.argtypes = [_P] * 6 + [_I, _P, _P, _P, _N]
     lib.host_final_exp.argtypes = [_P, _P, _N]
     lib.host_miller_product.argtypes = [_P] * 4 + [_I, _P, _N]
-    for fn in ("host_mont_mul", "host_fq12_mul", "host_msm_affine",
+    for fn in ("host_mont_mul", "host_fq_inv", "host_fq12_mul", "host_msm_affine",
                "host_miller_mixed", "host_final_exp", "host_miller_product"):
         getattr(lib, fn).restype = _I
     return lib

@@ -13,8 +13,8 @@ its kernel, checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on its tensors' device and that
 device's current stream, raises on a CUDA error and counts its launches
 in ``<wrapper>.launches``. No wrapper pads the batch: the kernels mask
-the ragged edge. K3 and K4 run on a team of threads per lane, at the
-shapes csrc/team.cuh fixes.
+the ragged edge. K2-K5 run on a team of threads per lane, at the shapes
+csrc/msm.cuh (K2) and csrc/team.cuh (K3-K5) fix.
 """
 
 from __future__ import annotations

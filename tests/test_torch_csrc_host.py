@@ -1,9 +1,11 @@
 """The CUDA kernels' arithmetic, built for the host: csrc/*.cuh compiled by
 the host C++ compiler into a test-only library (csrc/host_check.cc) and run
-lane by lane against the oracle. Covers the 16<->32-bit limb conversion,
-the 32-bit CIOS, the tower, the MSM lane, a final_exp(miller_mixed) lane
-and K5's Miller-product lane without a card. Skips where no host C++
-compiler is installed."""
+against the oracle and the plain twins, the team kernels with one host
+thread per team thread. Covers the 16<->32-bit limb conversion, the 32-bit
+CIOS, the teams' Fq12 product, K2's MSM team, final_exp(miller_mixed) and
+K5's Miller-product team without a card, each kernel's code with the form
+of the Montgomery product its unit runs on the card. Skips where no host
+C++ compiler is installed."""
 
 import random
 import shutil
@@ -26,13 +28,24 @@ from snark_bn254_verifier_tpu_torch.ops import lines as LN
 from snark_bn254_verifier_tpu_torch.ops.limbs import FQ, FR
 
 
-@pytest.fixture(scope="module")
-def lib():
+def host_check(rolled):
     if shutil.which("g++") is None and shutil.which("c++") is None:
         pytest.skip("no host C++ compiler")
     from snark_bn254_verifier_tpu_torch.ops import _build
 
-    return _build.load_host_check()
+    return _build.load_host_check(rolled)
+
+
+@pytest.fixture(scope="module")
+def lib():
+    """Built with the unrolled Montgomery product, K1's, K3's and K4's."""
+    return host_check(False)
+
+
+@pytest.fixture(scope="module")
+def lib_rolled():
+    """Built with the rolled Montgomery product, K2's and K5's."""
+    return host_check(True)
 
 
 def ptr(t):
@@ -43,34 +56,59 @@ def c_tensor(x):
     return torch.as_tensor(np.ascontiguousarray(x)).contiguous()
 
 
+@pytest.mark.parametrize("rolled", [0, 1])
 @pytest.mark.parametrize("name", ["fq", "fr"])
-def test_fp_mul_matches_oracle_and_plain_twin(lib, name):
+def test_fp_mul_matches_oracle_and_plain_twin(lib, name, rolled):
+    """The CIOS product in both forms (K2 and K5 run the rolled one)."""
     spec = FQ if name == "fq" else FR
     rng = random.Random(51)
     va = [rng.randrange(spec.modulus) for _ in range(6)] + [0, spec.modulus - 1]
     vb = [rng.randrange(spec.modulus) for _ in range(6)] + [spec.modulus - 1, spec.modulus - 1]
     a, b = c_tensor(spec.pack(va)), c_tensor(spec.pack(vb))
     out = torch.empty_like(a)
-    assert lib.host_mont_mul(ptr(a), ptr(b), ptr(out), a.shape[1], 0 if name == "fq" else 1) == 0
+    assert lib.host_mont_mul(ptr(a), ptr(b), ptr(out), a.shape[1],
+                             0 if name == "fq" else 1, rolled) == 0
     assert spec.unpack(out.numpy()) == [x * y % spec.modulus for x, y in zip(va, vb)]
     assert torch.equal(out, F.mont_mul(spec, a, b))
 
 
-def test_fq12_mul_matches_oracle(lib):
+@pytest.mark.parametrize("binary", [0, 1])
+def test_fq_inverse_matches_oracle(lib, lib_rolled, binary):
+    """Fermat (K4's) and binary Euclid (K2's) inverses of Montgomery
+    elements, each with its kernel's product: limb-equal to the oracle's,
+    zero to zero."""
+    rng = random.Random(50)
+    vals = [rng.randrange(bn.P) for _ in range(8)] + [0, 1, 2, bn.P - 1, 1 << 200]
+    a = c_tensor(FQ.pack(vals))
+    out = torch.empty_like(a)
+    host = lib_rolled if binary else lib
+    assert host.host_fq_inv(ptr(a), ptr(out), a.shape[1], binary) == 0
+    assert FQ.unpack(out.numpy()) == [pow(v, bn.P - 2, bn.P) for v in vals]
+
+
+def test_fq12_mul_matches_oracle(lib, lib_rolled):
+    """team.cuh's Fq12 product as each team kernel runs it: K4's team of 12
+    (8 lanes a block) and K3's of 18 (4 lanes a block) with the unrolled
+    Montgomery product, K5's of 18 with the rolled one. 9 lanes (ragged
+    blocks) of random values, zero, one and every coefficient p - 1."""
     rng = random.Random(52)
 
     def rand12():
         return tuple(tuple((rng.randrange(bn.P), rng.randrange(bn.P)) for _ in range(3))
                      for _ in range(2))
 
-    xs, ys = [rand12() for _ in range(3)], [rand12() for _ in range(3)]
+    top = tuple(tuple((bn.P - 1, bn.P - 1) for _ in range(3)) for _ in range(2))
+    xs = [rand12() for _ in range(6)] + [bn.FQ12_ZERO, top, bn.FQ12_ONE]
+    ys = [rand12() for _ in range(6)] + [rand12(), top, rand12()]
     a, b = c_tensor(pack_fq12(xs)), c_tensor(pack_fq12(ys))
-    out = torch.empty_like(a)
-    assert lib.host_fq12_mul(ptr(a), ptr(b), ptr(out), 3) == 0
-    assert unpack_fq12(out.numpy()) == [bn.fq12_mul(x, y) for x, y in zip(xs, ys)]
+    want = [bn.fq12_mul(x, y) for x, y in zip(xs, ys)]
+    for host, team in ((lib, 12), (lib, 18), (lib_rolled, 18)):
+        out = torch.empty_like(a)
+        assert host.host_fq12_mul(ptr(a), ptr(b), ptr(out), len(xs), team) == 0
+        assert unpack_fq12(out.numpy()) == want, (team, host is lib_rolled)
 
 
-def test_msm_affine_lane_matches_oracle(lib):
+def test_msm_affine_lane_matches_oracle(lib_rolled):
     rng = random.Random(53)
     pts = [bn.g1_mul(bn.G1_GEN, rng.randrange(1, bn.R)) for _ in range(3)]
     # lane 0: three points; lane 1: a repeated point (doubling) and infinity
@@ -83,8 +121,8 @@ def test_msm_affine_lane_matches_oracle(lib):
     sc = c_tensor(np.stack([FR.pack([scal[l][j] for l in range(2)], mont=False) for j in range(3)]))
     ox = torch.empty((16, 2), dtype=torch.int32)
     oy, oinf = torch.empty_like(ox), torch.empty(2, dtype=torch.uint8)
-    assert lib.host_msm_affine(ptr(px), ptr(py), ptr(pinf), ptr(sc), 3,
-                               ptr(ox), ptr(oy), ptr(oinf), 2) == 0
+    assert lib_rolled.host_msm_affine(ptr(px), ptr(py), ptr(pinf), ptr(sc), 3,
+                                      ptr(ox), ptr(oy), ptr(oinf), 2) == 0
     xs, ys = unpack_fq(ox.numpy()), unpack_fq(oy.numpy())
     for lane in range(2):
         keep = [j for j in range(3) if lanes[lane][j] is not None]
@@ -115,9 +153,9 @@ def test_final_exp_of_miller_mixed_lane_matches_oracle(lib):
     assert unpack_fq12(gt.numpy()) == [want]
 
 
-def test_msm_affine_lane_combines_point_groups(lib):
-    """More points than one Straus group (MSM_GROUP = 4): the lane sums
-    the groups' partials, as the VK of an 8-input circuit needs (9 points)."""
+def test_msm_affine_lane_combines_point_groups(lib_rolled):
+    """9 points, as the VK of an 8-input circuit needs: the team's threads
+    each take a point and their partial sums are added in a tree."""
     rng = random.Random(55)
     n = 9
     lanes = [[bn.g1_mul(bn.G1_GEN, rng.randrange(1, bn.R)) for _ in range(n)] for _ in range(2)]
@@ -131,8 +169,8 @@ def test_msm_affine_lane_combines_point_groups(lib):
     sc = c_tensor(np.stack([FR.pack([scal[l][j] for l in range(2)], mont=False) for j in range(n)]))
     ox = torch.empty((16, 2), dtype=torch.int32)
     oy, oinf = torch.empty_like(ox), torch.empty(2, dtype=torch.uint8)
-    assert lib.host_msm_affine(ptr(px), ptr(py), ptr(pinf), ptr(sc), n,
-                               ptr(ox), ptr(oy), ptr(oinf), 2) == 0
+    assert lib_rolled.host_msm_affine(ptr(px), ptr(py), ptr(pinf), ptr(sc), n,
+                                      ptr(ox), ptr(oy), ptr(oinf), 2) == 0
     xs, ys = unpack_fq(ox.numpy()), unpack_fq(oy.numpy())
     for lane in range(2):
         keep = [j for j in range(n) if lanes[lane][j] is not None]
@@ -176,10 +214,11 @@ def test_miller_mixed_lanes_with_infinite_pairs_equal_plain_twin(lib, n):
     assert torch.equal(f, want)
 
 
-def test_miller_product_lanes_with_infinite_pairs_equal_plain_twin(lib):
-    """K5's lane for 1, 3 and 5 pairs (5: two groups on two shared chains)
-    is limb-equal to the plain twin's product of separate Miller loops.
-    Infinite pairs go through the same calls with the line (1, 0, 0)."""
+def test_miller_product_lanes_with_infinite_pairs_equal_plain_twin(lib_rolled):
+    """K5's team for 1, 3 and 5 pairs (5: two passes of its MP_CHAINS = 4
+    chains, one pair each) is limb-equal to the plain twin's product of
+    separate Miller loops. Infinite pairs go through the same rounds with
+    the line (1, 0, 0)."""
     from snark_bn254_verifier_tpu_torch.ops import pairing as PR
     from snark_bn254_verifier_tpu_torch.ops import tower as T
 
@@ -211,7 +250,8 @@ def test_miller_product_lanes_with_infinite_pairs_equal_plain_twin(lib):
         if k not in (1, 3, 5):
             continue
         out = torch.empty((16, 12, b), dtype=torch.int32)
-        assert lib.host_miller_product(ptr(px), ptr(py), ptr(qx), ptr(qy), k, ptr(out), b) == 0
+        assert lib_rolled.host_miller_product(ptr(px), ptr(py), ptr(qx), ptr(qy), k,
+                                              ptr(out), b) == 0
         assert torch.equal(out, acc.to(torch.int32)), k
 
 
@@ -257,3 +297,77 @@ def test_final_exp_team_on_arbitrary_lanes_equals_plain_twin(lib, n):
     out = torch.empty_like(f)
     assert lib.host_final_exp(ptr(f), ptr(out), n) == 0
     assert torch.equal(out, PR.final_exp(f).to(torch.int32))
+
+
+def msm_edge_lanes(rng, n, b):
+    """n points over b lanes with random scalars and, where n allows, the
+    edge lanes of chip_smoke.py: 0 zero scalars, 1 an infinite point, 2
+    scalar r - 1, 3 one point thrice (the sums double), 4 P + (-P)."""
+    pool = [bn.g1_mul(bn.G1_GEN, rng.randrange(1, bn.R)) for _ in range(5)]
+    lanes = [[pool[(i + j) % 5] for i in range(b)] for j in range(n)]
+    scal = [[rng.randrange(bn.R) for _ in range(b)] for _ in range(n)]
+    for j in range(n):
+        scal[j][0] = 0
+    lanes[n - 1][1] = None
+    scal[0][2] = bn.R - 1
+    for j in range(1, min(n, 3)):
+        lanes[j][3], scal[j][3] = lanes[0][3], scal[0][3]
+    if n >= 2:
+        lanes[1][4], scal[1][4] = bn.g1_neg(lanes[0][4]), scal[0][4]
+    return lanes, scal
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 11, 17])
+def test_msm_affine_team_edge_lanes_match_oracle(lib_rolled, n):
+    """K2's team on PlonK's MSM sizes (11, 7, 2, 1 points) and on 17 (two
+    passes of the 16-thread team), over 9 lanes in blocks of MSM_LPB = 2
+    (the last block ragged), with the edge lanes; the affine result is
+    unique, so equality with the oracle is limb-equality."""
+    b = 9
+    lanes, scal = msm_edge_lanes(random.Random(60 + n), n, b)
+    packed = [pack_g1(l) for l in lanes]
+    px = c_tensor(np.stack([p[0] for p in packed]))
+    py = c_tensor(np.stack([p[1] for p in packed]))
+    pinf = c_tensor(np.stack([p[2] for p in packed]).astype(np.uint8))
+    sc = c_tensor(np.stack([FR.pack(s, mont=False) for s in scal]))
+    ox = torch.empty((16, b), dtype=torch.int32)
+    oy, oinf = torch.empty_like(ox), torch.empty(b, dtype=torch.uint8)
+    assert lib_rolled.host_msm_affine(ptr(px), ptr(py), ptr(pinf), ptr(sc), n,
+                                      ptr(ox), ptr(oy), ptr(oinf), b) == 0
+    xs, ys = unpack_fq(ox.numpy()), unpack_fq(oy.numpy())
+    for lane in range(b):
+        keep = [j for j in range(n) if lanes[j][lane] is not None]
+        want = bn.g1_msm([lanes[j][lane] for j in keep], [scal[j][lane] for j in keep])
+        got = None if oinf[lane] else (xs[lane], ys[lane])
+        assert got == want, lane
+        if want is None:
+            assert xs[lane] == ys[lane] == 0
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5])
+def test_miller_product_team_ragged_block_equals_plain_twin(lib_rolled, n):
+    """K5's team over 5 lanes, limb-equal to the plain twin; lane 1 has an
+    infinite P, lane 2 an infinite Q on the last pair, lane 3 every pair
+    infinite; chains without a pair (n < 4) multiply by one."""
+    from snark_bn254_verifier_tpu_torch.ops import pairing as PR
+
+    rng = random.Random(70 + n)
+    b = 5
+    g1 = [bn.g1_mul(bn.G1_GEN, rng.randrange(1, bn.R)) for _ in range(3)]
+    g2 = [bn.g2_mul(bn.G2_GEN, rng.randrange(1, bn.R)) for _ in range(2)]
+    ps = [[g1[(i + j) % 3] for i in range(b)] for j in range(n)]
+    qs = [[g2[(i + j) % 2] for i in range(b)] for j in range(n)]
+    ps[0][1] = None
+    qs[n - 1][2] = None
+    for j in range(n):
+        ps[j][3] = None
+    P = tuple(c_tensor(a) for a in pair_major(pack_g1, ps))
+    Q = tuple(c_tensor(a) for a in pair_major(pack_g2, qs))
+    want = PR.miller_product(P, Q)
+    # the kernel's inputs: infinite pairs zeroed (as ops/pairing_cuda.py does)
+    skip = P[2] | Q[2]
+    px, py = (c_tensor(torch.where(skip[:, None], 0, t)) for t in P[:2])
+    qx, qy = (c_tensor(torch.where(skip[:, None, None], 0, t)) for t in Q[:2])
+    out = torch.empty((16, 12, b), dtype=torch.int32)
+    assert lib_rolled.host_miller_product(ptr(px), ptr(py), ptr(qx), ptr(qy), n, ptr(out), b) == 0
+    assert torch.equal(out, want)

@@ -71,7 +71,7 @@ def test_msm_affine_kernel_equals_plain(cuda):
 
 
 def test_msm_affine_kernel_more_points_than_a_group(cuda):
-    """9 points (a VK with 8 public inputs): three Straus groups summed."""
+    """9 points (a VK with 8 public inputs): nine threads' sums combined."""
     rng = random.Random(64)
     n = 9
     pool = points(rng, 5)
@@ -82,6 +82,60 @@ def test_msm_affine_kernel_more_points_than_a_group(cuda):
                              for _ in range(n)]),))[0]
     got, want = PC.msm_affine(pts, sc), C.msm_affine(pts, sc)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def edge_msm_lanes(rng, n, b):
+    """n points over b lanes from a pool with random scalars; from 8 lanes
+    on, the edge lanes: 0 zero scalars, 1 an infinite point, 2 scalar
+    r - 1, 3 one point thrice, 4 P + (-P)."""
+    pool = points(rng, 5)
+    lanes = [[pool[(i + j) % 5] for i in range(b)] for j in range(n)]
+    scal = [[rng.randrange(bn.R) for _ in range(b)] for _ in range(n)]
+    if b >= 8:
+        for j in range(n):
+            scal[j][0] = 0
+        lanes[n - 1][1] = None
+        scal[0][2] = bn.R - 1
+        for j in range(1, min(n, 3)):
+            lanes[j][3], scal[j][3] = lanes[0][3], scal[0][3]
+        if n >= 2:
+            lanes[1][4], scal[1][4] = bn.g1_neg(lanes[0][4]), scal[0][4]
+    return lanes, scal
+
+
+@pytest.mark.parametrize("n,b", [(3, B + 1), (11, 1), (17, 3)])
+def test_msm_affine_team_ragged_and_one_lane(cuda, n, b):
+    """K2 (2 lanes per block) at an odd batch, at batch one (PlonK's
+    largest MSM) and on 17 points (two passes of the 16-thread team),
+    exact against the plain twin on the same inputs (run on the CPU, where
+    it is quicker at these sizes)."""
+    lanes, scal = edge_msm_lanes(random.Random(66), n, b)
+    packed = [pack_g1(l) for l in lanes]
+    pts = on(cuda, tuple(np.stack([p[i] for p in packed]) for i in range(3)))
+    sc = on(cuda, (np.stack([FR.pack(s, mont=False) for s in scal]),))[0]
+    before = PC.msm_affine.launches
+    got = PC.msm_affine(pts, sc)
+    assert PC.msm_affine.launches == before + 1
+    want = C.msm_affine(tuple(t.cpu() for t in pts), sc.cpu())
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("n,b", [(3, B + 3), (2, 1), (3, 1), (5, 1)])
+def test_miller_product_team_ragged_and_one_lane(cuda, n, b):
+    """K5 (one lane of four chains per block) at B + 3 lanes and at batch
+    one, with an infinite P and an infinite Q where the batch has room,
+    exact against the plain twin on the same inputs (run on the CPU)."""
+    rng = random.Random(67)
+    g1, g2 = points(rng, 4), [bn.g2_mul(bn.G2_GEN, rng.randrange(1, bn.R)) for _ in range(3)]
+    ps = [[g1[(i + j) % 4] for i in range(b)] for j in range(n)]
+    qs = [[g2[(i + 2 * j) % 3] for i in range(b)] for j in range(n)]
+    if b > 2:
+        ps[0][1] = None
+        qs[n - 1][2] = None
+    P, Q = on(cuda, pair_major(pack_g1, ps)), on(cuda, pair_major(pack_g2, qs))
+    got = PC.miller_product(P, Q)
+    want = PR.miller_product(tuple(t.cpu() for t in P), tuple(t.cpu() for t in Q))
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("b", [B, B + 3])
@@ -115,8 +169,8 @@ def test_slice_on_cuda(cuda):
 
 
 def test_miller_product_kernel_equals_plain(cuda):
-    """K5 for 3 pairs (one shared chain) and 5 (two), with infinite P and
-    Q lanes and a pair infinite by its mask alone."""
+    """K5 for 3 pairs (one pass of its four chains) and 5 (two passes),
+    with infinite P and Q lanes and a pair infinite by its mask alone."""
     rng = random.Random(65)
     g1, g2 = points(rng, 4), [bn.g2_mul(bn.G2_GEN, rng.randrange(1, bn.R)) for _ in range(3)]
     for n in (3, 5):
