@@ -19,9 +19,9 @@ It builds the port's CUDA kernels from csrc/, then
      lane;
   2. drives the batched path, ``Groth16BatchVerifier(vk, device="cuda")``
      on a batch of 1024 proofs of the bench vector with bad lanes at fixed
-     positions, checks the exact bool vector and that its kernels (K1-K4)
-     were launched, checks a small batch against the CPU run, and times
-     warm batches;
+     positions, checks the exact bool vector and that its kernels (K1 in
+     its fused form g2_on_curve, exactly once, and K2-K4) were launched,
+     checks a small batch against the CPU run, and times warm batches;
   3. drives the single-proof path, ``Groth16Verifier.verify`` and
      ``PlonkVerifier.verify`` with ``device="cuda"``, on a good proof, a
      wrong input value, a wrong input count, a corrupted proof byte and,
@@ -31,7 +31,9 @@ It builds the port's CUDA kernels from csrc/, then
      and splits one call into its primitives.
 
 Each path's launch counts are set to 0 just before it is driven and read
-just after; together the paths must launch every kernel. It imports
+just after; together the paths must launch every kernel but K1's
+elementwise form, mont_mul, which no path launches (it is still checked
+and timed). It imports
 neither JAX nor the JAX package. It prints the card's name and power
 limit, one JSON line with the kernels' results (time, bound, share of the
 bound, launches per path, registers, stack, shared bytes, team shape),
@@ -53,7 +55,8 @@ ITERS = 3     # warm slice runs timed
 SINGLE_ITERS = 10  # warm single-proof calls timed, per protocol
 SEED = 0
 CSRC = "snark_bn254_verifier_tpu_torch/csrc/"
-SOURCE = {"mont_mul": CSRC + "fp.cuh", "msm_affine": CSRC + "msm.cuh",
+SOURCE = {"mont_mul": CSRC + "fp.cuh", "g2_on_curve": CSRC + "curve.cuh",
+          "msm_affine": CSRC + "msm.cuh",
           "miller_mixed": CSRC + "team.cuh", "final_exp": CSRC + "team.cuh",
           "miller_product": CSRC + "team.cuh"}
 # run on a team of threads per lane
@@ -70,6 +73,7 @@ PALLAS = "snark_bn254_verifier_tpu/ops/"
 # kernel -> (TPU kernels it replaces, file:line); the first is "replaces"
 REPLACES = {
     "mont_mul": [PALLAS + "field_pallas.py:37"],
+    "g2_on_curve": [PALLAS + "field_pallas.py:37"],
     "msm_affine": [PALLAS + "pairing_pallas.py:206", PALLAS + "pairing_pallas.py:271"],
     "miller_mixed": [PALLAS + "pairing_pallas.py:99"],
     "final_exp": [PALLAS + "pairing_pallas.py:179", PALLAS + "pairing_pallas.py:191"],
@@ -138,6 +142,39 @@ def count_fp_muls(fn) -> int:
     return count[0]
 
 
+def count_aten_calls(fn) -> int:
+    """ATen calls fn() makes on CPU tensors (a TorchDispatchMode count),
+    each Montgomery product counted as one call: the eager launches of a
+    plain twin whose products go through K1, as the G2 mask's did before
+    its fused form."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from snark_bn254_verifier_tpu_torch.ops import field as F
+
+    real, state = F.mont_mul, {"calls": 0, "in_product": False}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            state["calls"] += not state["in_product"]
+            return func(*args, **(kwargs or {}))
+
+    def one_call(spec, a, b):
+        state["calls"] += 1
+        state["in_product"] = True
+        try:
+            return real(spec, a, b)
+        finally:
+            state["in_product"] = False
+
+    F.mont_mul = one_call
+    try:
+        with Count():
+            fn()
+    finally:
+        F.mont_mul = real
+    return state["calls"]
+
+
 def bound(fp_muls: int, nbytes: int) -> dict:
     """The least time the card could take for ``fp_muls`` Montgomery
     products reading and writing ``nbytes``: the larger of integer
@@ -199,7 +236,8 @@ def phase_mont_mul(ctx):
     from snark_bn254_verifier_tpu_torch.ops.limbs import FQ, FR, limbs_batch_to_ints
 
     rows = {}
-    # Fq at the G2 mask's stacked shape; Fr at one product per lane
+    # Fq at the shape the G2 mask gave K1 before its fused form (three
+    # products a lane); Fr at one product per lane
     for spec, shape in ((FQ, (3, ctx.batch)), (FR, (ctx.batch,))):
         a = ctx.rand_limbs(spec.modulus, shape)
         b = ctx.rand_limbs(spec.modulus, shape)
@@ -223,6 +261,63 @@ def phase_mont_mul(ctx):
     shape, _, ms, plain_ms, bnd = rows["fq"]  # kernel and twin at one field and shape
     return {"max_abs_err": max(r[1] for r in rows.values()), "ms": ms, "plain_ms": plain_ms,
             "shape": list(shape), **bnd}
+
+
+def phase_g2_on_curve(ctx):
+    import numpy as np
+    import torch
+
+    from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
+    from snark_bn254_verifier_tpu_torch.models.packing import pack_g2, unpack_fq
+    from snark_bn254_verifier_tpu_torch.ops import _build
+    from snark_bn254_verifier_tpu_torch.ops import curve as C
+    from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
+
+    b = ctx.batch
+    # about half the lanes divergent: kinds 0-2 on the curve, 3 y moved off
+    # it, 4 infinity (by its flag alone over off-curve coordinates on odd
+    # lanes), 5 valid False; lanes 0-5 each kind, lane 6 off and invalid
+    kind = ctx.rng.integers(0, 6, size=b)
+    kind[:7] = [0, 3, 4, 4, 5, 3, 3]
+    valid = (kind != 5) & (np.arange(b) != 6)
+    pts = [(p[0], bn.fq2_add(p[1], (int(ctx.rng.integers(1, 1 << 30)), 0))) if k in (3, 4) else p
+           for p, k in zip(ctx.lanes(ctx.g2_pool, b), kind)]
+    pts = [None if k == 4 and lane % 2 == 0 else p for lane, (k, p) in enumerate(zip(kind, pts))]
+    x, y, inf = pack_g2(pts)
+    inf |= kind == 4
+    bs = tuple(torch.as_tensor(a, device=ctx.dev) for a in (x, y, inf))
+    tvalid = torch.as_tensor(valid, device=ctx.dev)
+    got = PC.g2_on_curve(bs, tvalid)
+    want, plain_ms = time_plain(lambda: C.g2_on_curve(bs, tvalid))
+    err = int((got != want).sum().item())
+    require(err == 0, "g2_on_curve differs from its plain twin")
+    lanes = list(range(8))
+    xs = [unpack_fq(bs[0][:, c, lanes].cpu().numpy()) for c in (0, 1)]
+    ys = [unpack_fq(bs[1][:, c, lanes].cpu().numpy()) for c in (0, 1)]
+    host = got[lanes].cpu().tolist()
+    for k, lane in enumerate(lanes):
+        pt = ((xs[0][k], xs[1][k]), (ys[0][k], ys[1][k]))
+        require(host[k] == bool(valid[lane] and (inf[lane] or bn.g2_is_on_curve(pt))),
+                f"g2_on_curve lane {lane} != oracle")
+    require(host[:7] == [True, False, True, True, False, False, False],
+            "g2_on_curve edge lanes 0-6 wrong")
+    ms = time_kernel(lambda: PC.g2_on_curve(bs, tvalid), 50)
+    # the C entry alone, without the wrapper's checks and allocation: the
+    # launch and the kernel (the same output rewritten)
+    lib, stream = _build.load_kernels().lib, torch.cuda.current_stream().cuda_stream
+    ptrs = [t.data_ptr() for t in (*bs, tvalid, got)]
+    c_entry_ms = time_kernel(lambda: lib.bn_g2_on_curve(*ptrs, b, stream), 200)
+    require(torch.equal(got, want), "g2_on_curve changed under the timed C entry")
+    print(f"K1 g2_on_curve B={b}, {int(((kind >= 3) | ~valid).sum())} lanes off the curve, "
+          f"at infinity or invalid: exact vs plain, oracle ok ({len(lanes)} lanes); "
+          f"kernel {ms:.4f} ms (C entry alone {c_entry_ms:.4f} ms), plain {plain_ms:.3f} ms (warm)")
+    # the work is data-independent: lane 0, on the curve
+    per_lane = count_fp_muls(lambda: PC.g2_on_curve(*lane_cpu((bs, tvalid), 0)))
+    unfused = count_aten_calls(lambda: PC.g2_on_curve(*lane_cpu((bs, tvalid), 0)))
+    print(f"K1 g2_on_curve: the plain twin makes {unfused} ATen calls (products as one each)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "c_entry_ms": c_entry_ms,
+            "aten_calls_unfused": unfused, "shape": [16, 2, b],
+            **bound(per_lane * b, nbytes(*bs, tvalid, got))}
 
 
 def msm_inputs(ctx, n, p_inf=0.0, p_zero=0.0, b=None):
@@ -564,14 +659,17 @@ def phase_miller_product(ctx):
 # tests/test_torch_kernel_registry.py).
 KERNEL_PHASES = {
     "mont_mul": phase_mont_mul,
+    "g2_on_curve": phase_g2_on_curve,
     "msm_affine": phase_msm_affine,
     "miller_mixed": phase_miller_mixed,
     "final_exp": phase_final_exp,
     "miller_product": phase_miller_product,
 }
-# The kernels each path launches; together they cover KERNEL_ENTRY_POINTS.
-SLICE_KERNELS = ("mont_mul", "msm_affine", "miller_mixed", "final_exp")
+# The kernels each path launches; together they cover KERNEL_ENTRY_POINTS
+# but UNLAUNCHED, K1's elementwise form (its fused form runs on the slice).
+SLICE_KERNELS = ("g2_on_curve", "msm_affine", "miller_mixed", "final_exp")
 SINGLE_KERNELS = ("msm_affine", "final_exp", "miller_product")
+UNLAUNCHED = ("mont_mul",)
 
 
 def slice_inputs(batch: int):
@@ -624,6 +722,8 @@ def run_slice(batch: int, iters: int):
     require(ver.last_stats.extra["parser"] == "native", "native parser did not run")
     for name in SLICE_KERNELS:
         require(launches[name] > 0, f"kernel {name} was not launched by the batched path")
+    require(launches["g2_on_curve"] == 1 and launches["mont_mul"] == 0,
+            "the batched path must launch g2_on_curve once and mont_mul never")
     print(f"slice B={batch}: bool vector exact ({int(ok.sum())} True), launches {launches}")
 
     # the same small batch on the CPU (plain twins) gives the same answer
@@ -641,6 +741,7 @@ def run_slice(batch: int, iters: int):
         require(ok.tolist() == expected, "slice bool vector changed between runs")
     best = min(times)
     mean_stage = {k: sum(s[k] for s in stages) / len(stages) for k in stages[0]}
+    mean_stage["host_ms"] = sum(mean_stage[k] for k in ("parse_ms", "pack_ms", "upload_ms"))
     print(f"slice warm: {iters} runs, batch s {[round(t, 4) for t in times]}, "
           f"{batch / best:.1f} proofs/s (best), {batch * iters / sum(times):.1f} proofs/s (mean)")
     print("slice stage ms (mean): " + json.dumps({k: round(v, 3) for k, v in mean_stage.items()}))
@@ -849,8 +950,9 @@ def main() -> int:
     per_call["slice"] = slice_launches  # one call of verify_batch
     launches = {name: slice_launches[name] + single_launches[name]
                 for name in PC.KERNEL_ENTRY_POINTS}
-    require(set(SLICE_KERNELS) | set(SINGLE_KERNELS) == set(PC.KERNEL_ENTRY_POINTS),
-            "a kernel is launched by no path")
+    require(set(SLICE_KERNELS) | set(SINGLE_KERNELS)
+            == set(PC.KERNEL_ENTRY_POINTS) - set(UNLAUNCHED), "a kernel is launched by no path")
+    require(not any(launches[name] for name in UNLAUNCHED), "mont_mul was launched by a path")
 
     attrs = kernel_attrs(kl.lib)
     kernels = [
@@ -868,8 +970,9 @@ def main() -> int:
             "bound_ms": results[name]["bound_ms"],
             "bound_by": results[name]["bound_by"],
             "share_of_bound": results[name]["bound_ms"] / results[name]["ms"],
-            # no PyTorch call computes a Montgomery product, an MSM over
-            # BN254, a Miller loop or a final exponentiation
+            # no PyTorch call computes a Montgomery product, the G2
+            # on-curve mask, an MSM over BN254, a Miller loop or a final
+            # exponentiation
             "library_ms": None,
             **attrs[name],
             **{k: v for k, v in results[name].items()

@@ -1,4 +1,5 @@
-// G1 Jacobian arithmetic of kernel K2 (msm.cuh), one point per thread.
+// G1 Jacobian arithmetic of kernel K2 (msm.cuh), one point per thread, and
+// the G2 on-curve mask of the fused K1 (kernels.cu::g2_on_curve_kernel).
 //
 // Formulas and edge handling follow ops/curve.py: dbl-2009-l,
 // madd-2007-bl and add-2007-bl, where P == Q doubles, P == -Q gives
@@ -161,4 +162,26 @@ BN_INLINE void g1_to_affine(fp& x, fp& y, bool& inf, const g1j& p) {
   fp_mul<FQ>(x, p.x, zinv2);
   fp_mul<FQ>(t, zinv, zinv2);
   fp_mul<FQ>(y, p.y, t);
+}
+
+// One lane of the G2 on-curve mask: valid && (inf || y^2 == x^3 + b') over
+// Fq2, with x and y (16, 2, n) Montgomery limbs (limb k of component c at
+// (2k + c) n + lane) and inf, valid (n,) bytes; ops/curve.py::
+// is_on_curve_affine with the validity mask ANDed in. Three inlined Fq2
+// products (9 Fp products) and no branch on lane data: inf and valid are
+// folded in by select at the end, so every lane does the same work.
+BN_INLINE uint8_t g2_on_curve_lane(const int32_t* x, const int32_t* y, const uint8_t* inf,
+                                   const uint8_t* valid, int64_t n, int64_t lane) {
+  fq2 px, py, lhs, rhs, b;
+  load_fp(px.c0, x + lane, 2 * n);
+  load_fp(px.c1, x + n + lane, 2 * n);
+  load_fp(py.c0, y + lane, 2 * n);
+  load_fp(py.c1, y + n + lane, 2 * n);
+  fq2_mul_in(lhs, py, py);
+  fq2_mul_in(rhs, px, px);
+  fq2_mul_in(rhs, rhs, px);
+  load_fq2_const(b, TWIST_B);
+  fq2_add(rhs, rhs, b);
+  const bool on = fp_eq(lhs.c0, rhs.c0) && fp_eq(lhs.c1, rhs.c1);
+  return (uint8_t)((valid[lane] != 0) & ((inf[lane] != 0) | on));
 }

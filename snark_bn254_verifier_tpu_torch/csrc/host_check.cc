@@ -1,12 +1,13 @@
 // Host build of the kernels' code, for the CPU tests only
 // (tests/test_torch_csrc_host.py): the same headers as kernels.cu, run on
 // the host, so the 16<->32-bit limb conversion, the CIOS and the
-// tower/curve/pairing formulas are checked without a card. K1 runs lane by
-// lane; the team kernels (K2-K5) run block by block, each thread of a block
-// as a host thread, meeting at a barrier wherever the card's threads meet
-// at __syncthreads. It is built twice, with each form of the Montgomery
-// product (BN_ROLLED_CIOS, fp.cuh), so each kernel's tests run the form
-// its unit runs on the card. The main path never loads this library.
+// tower/curve/pairing formulas are checked without a card. K1 and its
+// fused form, the G2 on-curve mask, run lane by lane; the team kernels
+// (K2-K5) run block by block, each thread of a block as a host thread,
+// meeting at a barrier wherever the card's threads meet at __syncthreads.
+// It is built twice, with each form of the Montgomery product
+// (BN_ROLLED_CIOS, fp.cuh), so each kernel's tests run the form its unit
+// runs on the card. The main path never loads this library.
 #include <thread>
 #include <vector>
 
@@ -78,6 +79,13 @@ int host_mont_mul(const int32_t* a, const int32_t* b, int32_t* out,
     else
       rolled ? mont_mul_lane<FR, true>(a, b, out, n, i) : mont_mul_lane<FR, false>(a, b, out, n, i);
   }
+  return 0;
+}
+
+// The G2 on-curve mask of kernels.cu::g2_on_curve_kernel, lane by lane.
+int host_g2_on_curve(const int32_t* x, const int32_t* y, const uint8_t* inf,
+                     const uint8_t* valid, uint8_t* out, long long n) {
+  for (long long i = 0; i < n; ++i) out[i] = g2_on_curve_lane(x, y, inf, valid, n, i);
   return 0;
 }
 

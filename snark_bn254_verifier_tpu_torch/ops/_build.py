@@ -42,8 +42,8 @@ _I = ctypes.c_int
 def consts_header() -> str:
     """The kernels' constants, derived from the oracle: moduli, Montgomery
     constants (R = 2^256, n0' = -p^-1 mod 2^32, R^3 mod p), the Fq
-    inversion exponent, Frobenius coefficients (Montgomery form) and the
-    loop bit schedules."""
+    inversion exponent, the twist's curve constant b' and the Frobenius
+    coefficients (Montgomery form), and the loop bit schedules."""
 
     def words(v):
         return ", ".join(f"0x{w:08x}u" for w in int_to_words(v))
@@ -77,6 +77,8 @@ def consts_header() -> str:
         f"BN_CONST uint32_t FQ_R3[8] = {{{words(pow(2, 768, bn.P))}}};",
         f"BN_CONST uint32_t FR_MOD[8] = {{{words(bn.R)}}};",
         f"BN_CONST uint32_t FR_ONE[8] = {{{words(FR.r_mod)}}};",
+        "// b' = 3 / XI of the twist E'/Fq2: y^2 = x^3 + b'",
+        f"BN_CONST uint32_t TWIST_B[2 * 8] = {{\n  {fq2_words(bn.B_G2)}}};",
         "// gamma_{power,i} = XI^(i (p^power - 1) / 6), power 1..3, i 0..5",
         "BN_CONST uint32_t FROB_GAMMA[3 * 6 * 2 * 8] = {\n  "
         + ",\n  ".join(frob) + "};",
@@ -217,11 +219,13 @@ def bind_kernels(lib_path: Path) -> ctypes.CDLL:
     sigs = {
         "bn_init": [_N],
         "bn_mont_mul": [_P, _P, _P, _N, _I, _P],
+        "bn_g2_on_curve": [_P, _P, _P, _P, _P, _N, _P],
         "bn_msm_affine": [_P, _P, _P, _P, _I, _P, _P, _P, _N, _P],
         "bn_miller_mixed": [_P] * 6 + [_I, _P, _P, _P, _N, _P],
         "bn_final_exp": [_P, _P, _N, _P],
         "bn_miller_product": [_P] * 4 + [_I, _P, _N, _P],
         "bn_mont_mul_attrs": [_P],
+        "bn_g2_on_curve_attrs": [_P],
         "bn_msm_affine_attrs": [_P],
         "bn_miller_mixed_attrs": [_P],
         "bn_final_exp_attrs": [_P],
@@ -261,12 +265,14 @@ def load_host_check(rolled: bool = False) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     lib.host_mont_mul.argtypes = [_P, _P, _P, _N, _I, _I]
     lib.host_fq_inv.argtypes = [_P, _P, _N, _I]
+    lib.host_g2_on_curve.argtypes = [_P, _P, _P, _P, _P, _N]
     lib.host_fq12_mul.argtypes = [_P, _P, _P, _N, _I]
     lib.host_msm_affine.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _N]
     lib.host_miller_mixed.argtypes = [_P] * 6 + [_I, _P, _P, _P, _N]
     lib.host_final_exp.argtypes = [_P, _P, _N]
     lib.host_miller_product.argtypes = [_P] * 4 + [_I, _P, _N]
-    for fn in ("host_mont_mul", "host_fq_inv", "host_fq12_mul", "host_msm_affine",
-               "host_miller_mixed", "host_final_exp", "host_miller_product"):
+    for fn in ("host_mont_mul", "host_fq_inv", "host_g2_on_curve", "host_fq12_mul",
+               "host_msm_affine", "host_miller_mixed", "host_final_exp",
+               "host_miller_product"):
         getattr(lib, fn).restype = _I
     return lib

@@ -6,8 +6,9 @@ x = X/Z^2, y = Y/Z^3 and infinity encoded as Z == 0; affine points are
 (x, y, inf) with a batch-shaped bool mask. Edge cases are handled by
 selects, and every operation broadcasts over trailing batch axes.
 
-``msm_affine`` is the plain twin of kernel K2 (csrc/kernels.cu
-::msm_affine_kernel): the windowed shared-doubling MSM of the Pallas
+``g2_on_curve`` is the plain twin of K1's fused form, the main path's G2
+on-curve mask; ``msm_affine`` is the plain twin of kernel K2
+(csrc/team_kernels.cu::msm_affine_kernel): the windowed shared-doubling MSM of the Pallas
 kernels _msm_windowed_kernel + _jacobian_combine_kernel
 (snark_bn254_verifier_tpu/ops/pairing_pallas.py:206,271), then affine.
 """
@@ -74,31 +75,25 @@ G1_OPS = CurveOps(
 )
 
 
-def g2_ops(fq_mul=F.fq_mul) -> CurveOps:
-    """G2 (Fq2) ops whose Montgomery products go through ``fq_mul``: the
-    plain product, or the K1 wrapper on the main path's on-curve mask."""
-
-    def mul(a, b):
-        return T.fq2_mul_many([(a, b)], mul=fq_mul)[0]
-
-    return CurveOps(
-        name="g2",
-        add=T.fq2_add,
-        sub=T.fq2_sub,
-        neg=T.fq2_neg,
-        mul=mul,
-        mul_many=lambda pairs: T.fq2_mul_many(pairs, mul=fq_mul),
-        sq=lambda a: mul(a, a),
-        inv=T.fq2_inv,
-        is_zero=T.fq2_is_zero,
-        eq=T.fq2_eq,
-        zero=torch.zeros_like,
-        one=lambda like: T.fq2_one(like.shape[2:], like),
-        b_const=lambda like: T.fq2_pack_const(bn.B_G2, like),
-    )
+def _fq2_mul(a, b):
+    return T.fq2_mul_many([(a, b)])[0]
 
 
-G2_OPS = g2_ops()
+G2_OPS = CurveOps(
+    name="g2",
+    add=T.fq2_add,
+    sub=T.fq2_sub,
+    neg=T.fq2_neg,
+    mul=_fq2_mul,
+    mul_many=T.fq2_mul_many,
+    sq=lambda a: _fq2_mul(a, a),
+    inv=T.fq2_inv,
+    is_zero=T.fq2_is_zero,
+    eq=T.fq2_eq,
+    zero=torch.zeros_like,
+    one=lambda like: T.fq2_one(like.shape[2:], like),
+    b_const=lambda like: T.fq2_pack_const(bn.B_G2, like),
+)
 
 
 def _sel(cond, a, b):
@@ -202,6 +197,12 @@ def is_on_curve_affine(ops: CurveOps, affine):
     lhs = ops.sq(y)
     rhs = ops.add(ops.mul(ops.sq(x), x), ops.b_const(x))
     return inf | ops.eq(lhs, rhs)
+
+
+def g2_on_curve(bs, valid):
+    """valid & (inf | y^2 == x^3 + b') of affine G2 points: the plain twin
+    of the fused K1 (ops/pairing_cuda.py::g2_on_curve)."""
+    return valid & is_on_curve_affine(G2_OPS, bs)
 
 
 def msm_windowed(ops: CurveOps, points, scalars, w: int = MSM_WINDOW_W):

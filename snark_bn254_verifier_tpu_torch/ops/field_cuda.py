@@ -1,8 +1,10 @@
 """Wrapper of kernel K1, the batched Montgomery multiply (CUDA).
 
 The counterpart of snark_bn254_verifier_tpu/ops/field_pallas.py
-(``mont_mul_pallas``, kernel ``_mont_kernel`` at field_pallas.py:37). On
-the main path it carries every product of the G2 on-curve mask.
+(``mont_mul_pallas``, kernel ``_mont_kernel`` at field_pallas.py:37). No
+path launches it: the main path's G2 on-curve mask runs K1's products in
+its fused form, ops/pairing_cuda.py::g2_on_curve. It stays as the
+elementwise product, held against its plain twin on the card.
 
 Dispatch: a CPU tensor goes to the plain twin (ops/field.py::mont_mul), a
 CUDA tensor to the kernel; nothing falls back from one to the other.
@@ -17,7 +19,7 @@ import torch
 
 from . import _build
 from . import field as F
-from .limbs import FQ, FieldSpec, NUM_LIMBS
+from .limbs import FieldSpec, NUM_LIMBS
 
 
 def _check_limbs(name: str, t: torch.Tensor) -> None:
@@ -69,7 +71,3 @@ def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 mont_mul.launches = 0
-
-
-def fq_mul(a, b):
-    return mont_mul(FQ, a, b)

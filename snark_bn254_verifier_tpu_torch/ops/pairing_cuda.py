@@ -1,8 +1,13 @@
-"""Wrappers of kernels K2-K5 (CUDA) and the port's kernel registry.
+"""Wrappers of the fused K1 and kernels K2-K5 (CUDA), and the port's
+kernel registry.
 
 The counterparts of the entry points of
-snark_bn254_verifier_tpu/ops/pairing_pallas.py:
+snark_bn254_verifier_tpu/ops/pairing_pallas.py, and of the G2 on-curve
+mask around field_pallas.py's K1 (``_g2_on_curve_jit`` of the JAX
+package's parallel/batch.py):
 
+  g2_on_curve     K1 fused with the mask's Fq2 arithmetic, replaces
+                  _mont_kernel (field_pallas.py:37) on the main path
   msm_affine      K2, replaces _msm_windowed_kernel + _jacobian_combine_kernel
   miller_mixed    K3, replaces _miller_mixed_kernel
   final_exp       K4, replaces _fe_easy_expx_kernel + _fe_combine_kernel
@@ -13,7 +18,7 @@ its kernel, checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on its tensors' device and that
 device's current stream, raises on a CUDA error and counts its launches
 in ``<wrapper>.launches``. No wrapper pads the batch: the kernels mask
-the ragged edge. K2-K5 run on a team of threads per lane, at the shapes
+the ragged edge. g2_on_curve runs one thread per lane; K2-K5 run on a team of threads per lane, at the shapes
 csrc/msm.cuh (K2) and csrc/team.cuh (K3-K5) fix.
 """
 
@@ -30,8 +35,8 @@ from .limbs import NUM_LIMBS
 # Every kernel the port launches; tests/test_torch_kernel_registry.py
 # holds it equal to the wrappers with a launch counter and to the phases
 # of chip_smoke.py, so no kernel ships without an on-card check.
-KERNEL_ENTRY_POINTS = ("mont_mul", "msm_affine", "miller_mixed", "final_exp",
-                       "miller_product")
+KERNEL_ENTRY_POINTS = ("mont_mul", "g2_on_curve", "msm_affine", "miller_mixed",
+                       "final_exp", "miller_product")
 
 
 NF_MAX = 2  # fixed pairs whose line tables K3 stages in shared memory
@@ -72,6 +77,31 @@ def _zero_masked(x: torch.Tensor, mask: torch.Tensor, lead: int = 0) -> torch.Te
     shape = tuple(mask.shape)
     m = mask.view(shape[:lead] + (1,) * (x.dim() - mask.dim()) + shape[lead:])
     return torch.where(m, torch.zeros_like(x), x).contiguous()
+
+
+def g2_on_curve(bs, valid):
+    """valid & (inf | y^2 == x^3 + b') per lane: the main path's G2
+    on-curve mask of the proofs' B points. bs = (x (16,2,B), y (16,2,B)
+    int32 Montgomery limbs, inf (B,) bool), valid (B,) bool; returns a
+    (B,) bool tensor."""
+    x, y, inf = bs
+    if _on_cpu(x, y, inf, valid):
+        return C.g2_on_curve(bs, valid)
+    b = x.shape[-1]
+    _expect("x", x, (NUM_LIMBS, 2, b))
+    _expect("y", y, (NUM_LIMBS, 2, b))
+    _expect("inf", inf, (b,), torch.bool)
+    _expect("valid", valid, (b,), torch.bool)
+    for name, t in (("x", x), ("y", y), ("inf", inf), ("valid", valid)):
+        if not t.is_contiguous():
+            raise ValueError(f"g2_on_curve: {name} is not contiguous")
+    out = torch.empty((b,), dtype=torch.bool, device=x.device)
+    if b == 0:
+        return out
+    launch(out.device, "bn_g2_on_curve", x.data_ptr(), y.data_ptr(), inf.data_ptr(),
+           valid.data_ptr(), out.data_ptr(), b)
+    g2_on_curve.launches += 1
+    return out
 
 
 def msm_affine(points, scalars):
@@ -195,10 +225,11 @@ def miller_product(pairs_p, pairs_q):
     return out
 
 
+g2_on_curve.launches = 0
 msm_affine.launches = 0
 miller_mixed.launches = 0
 final_exp.launches = 0
 miller_product.launches = 0
 
-__all__ = ["KERNEL_ENTRY_POINTS", "mont_mul", "msm_affine", "miller_mixed",
+__all__ = ["KERNEL_ENTRY_POINTS", "mont_mul", "g2_on_curve", "msm_affine", "miller_mixed",
            "final_exp", "miller_product", "launch_counts", "reset_launch_counts"]

@@ -41,16 +41,15 @@ def fq2_pack_const(val, like):
     return pack_const((val[0], val[1]), like)
 
 
-def fq2_mul_many(pairs, mul=F.fq_mul):
+def fq2_mul_many(pairs):
     """Karatsuba Fq2 products of every (a, b) pair in one Montgomery call
-    of width 3k. ``mul`` is the Fq product to use (the plain one, or the
-    K1 wrapper on the main path's G2 mask)."""
+    of width 3k."""
     k = len(pairs)
     a = torch.stack([p[0] for p in pairs], 1)  # (16, k, 2, *b)
     b = torch.stack([p[1] for p in pairs], 1)
     sa = F.fq_add(a[:, :, 0], a[:, :, 1])
     sb = F.fq_add(b[:, :, 0], b[:, :, 1])
-    t = mul(torch.cat([a[:, :, 0], a[:, :, 1], sa], 1),
+    t = F.fq_mul(torch.cat([a[:, :, 0], a[:, :, 1], sa], 1),
             torch.cat([b[:, :, 0], b[:, :, 1], sb], 1))
     t0, t1, t2 = t[:, :k], t[:, k:2 * k], t[:, 2 * k:]
     c0 = F.fq_sub(t0, t1)

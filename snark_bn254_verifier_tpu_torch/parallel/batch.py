@@ -5,10 +5,11 @@ snark_bn254_verifier_tpu/parallel/batch.py (``Groth16BatchVerifier``,
 batch.py:125-366 there). Per batch:
 
   1. host: the native C++ parse (the Python parser where proof lengths
-     differ), scalar packing, the VK's (gamma, -delta) line tables and
-     e(alpha, beta), both computed once per VK on the oracle;
-  2. device: the G2 on-curve mask of the proofs' B points, every product
-     through kernel K1;
+     differ), scalar and point packing, the copies to the device, the
+     VK's (gamma, -delta) line tables and e(alpha, beta), both computed
+     once per VK on the oracle;
+  2. device: the G2 on-curve mask of the proofs' B points, kernel K1 in
+     its fused form (g2_on_curve);
   3. the prepared input 1*k0 + sum in_i * k_{i+1}, kernel K2;
   4. the mixed Miller product of e(A, B), e(L, gamma), e(C, -delta),
      kernel K3, then the final exponentiation, kernel K4;
@@ -34,16 +35,11 @@ from ..utils import native
 from ..utils import serialization as ser
 from ..utils.profiling import RunStats
 from ..models.packing import pack_fq12, pack_fr_canonical, pack_g1, pack_g2
-from ..ops import curve as C
-from ..ops import field_cuda as FC
 from ..ops import lines as LN
 from ..ops import pairing_cuda as PC
 from ..ops import tower as T
 
 R = bn.R
-
-# G2 ops whose products go through K1 on a CUDA device (plain on the CPU)
-_G2_MASK_OPS = C.g2_ops(FC.fq_mul)
 
 
 def resolve_device(device) -> torch.device:
@@ -108,6 +104,8 @@ class Groth16BatchVerifier:
         parsed = self._parse_native(proofs)
         parser = "native" if parsed is not None else "python"
         ar, bs, krs, valid = parsed if parsed is not None else self._parse_python(proofs)
+        lap("parse_ms")
+
         scalars = []
         for i, ins in enumerate(public_inputs):
             if len(ins) != self.n_inputs:
@@ -122,20 +120,20 @@ class Groth16BatchVerifier:
                for j in range(self.n_inputs)]
         )
         kx, ky, kinf = pack_g1(self.vk.k)
-        k_points = (
-            self._to_dev(np.broadcast_to(kx.T[:, :, None], kx.T.shape + (b,))),
-            self._to_dev(np.broadcast_to(ky.T[:, :, None], ky.T.shape + (b,))),
-            self._to_dev(np.broadcast_to(kinf[:, None], kinf.shape + (b,))),
-        )
+        k_points = tuple(np.ascontiguousarray(np.broadcast_to(a[..., None], a.shape + (b,)))
+                         for a in (kx.T, ky.T, kinf))
+        lap("pack_ms")
+
+        k_points = tuple(self._to_dev(x) for x in k_points)
         sc = self._to_dev(sc)
         ar, bs, krs = (tuple(self._to_dev(x) for x in pt) for pt in (ar, bs, krs))
         lines, tails = self.line_tables()
         alpha_beta = self.alpha_beta()
         valid = self._to_dev(valid)
-        lap("host_ms")
+        lap("upload_ms")
 
         if parser == "native":  # the Python parser checked the curve itself
-            valid = valid & C.is_on_curve_affine(_G2_MASK_OPS, bs)
+            valid = PC.g2_on_curve(bs, valid)
         lap("g2_mask_ms")
         prepared = PC.msm_affine(k_points, sc)
         lap("msm_ms")

@@ -46,7 +46,8 @@ def test_groth16_batch_with_bad_lanes(g16):
     assert stats.n_valid == 3 and stats.pairings_per_proof == 3
     assert stats.elapsed_s > 0 and stats.extra["parser"] == "native"
     assert set(stats.extra["stage_ms"]) == {
-        "host_ms", "g2_mask_ms", "msm_ms", "miller_ms", "final_exp_ms", "compare_ms"}
+        "parse_ms", "pack_ms", "upload_ms", "g2_mask_ms", "msm_ms", "miller_ms",
+        "final_exp_ms", "compare_ms"}
 
 
 def test_truncated_proof_sends_batch_to_python_parser(g16):

@@ -1,6 +1,7 @@
-"""PyTorch port, curve layer: the main path's G2 on-curve mask against the
-JAX package, and the plain twin of kernel K2 (windowed MSM -> affine)
-against the oracle and against the JAX package's XLA tier. Exact."""
+"""PyTorch port, curve layer: the main path's G2 on-curve mask (the plain
+twin of the fused K1, g2_on_curve) against the JAX package, and the plain
+twin of kernel K2 (windowed MSM -> affine) against the oracle and against
+the JAX package's XLA tier. Exact."""
 
 import random
 
@@ -14,7 +15,6 @@ from snark_bn254_verifier_tpu.oracle import bn254 as bn
 from snark_bn254_verifier_tpu.ops import curve as JC
 from snark_bn254_verifier_tpu_torch.models.packing import pack_g1, pack_g2, unpack_fq
 from snark_bn254_verifier_tpu_torch.ops import curve as C
-from snark_bn254_verifier_tpu_torch.ops import field_cuda as FC
 from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
 from snark_bn254_verifier_tpu_torch.ops.limbs import FR
 
@@ -33,9 +33,57 @@ def test_g2_on_curve_mask_matches_jax():
     want = JC.is_on_curve_affine(JC.G2_OPS, (x.astype(np.uint32), y.astype(np.uint32), inf))
     assert got.tolist() == [True, False, True, True]
     assert got.tolist() == np.asarray(want).tolist()
-    # the same mask through the K1 wrapper (plain on CPU tensors)
-    k1_ops = C.g2_ops(FC.fq_mul)
-    assert C.is_on_curve_affine(k1_ops, tensors((x, y, inf))).tolist() == got.tolist()
+    # the same mask through the fused K1 wrapper (plain on CPU tensors)
+    valid = torch.ones(len(lanes), dtype=torch.bool)
+    assert PC.g2_on_curve(tensors((x, y, inf)), valid).tolist() == got.tolist()
+
+
+def g2_mask_lanes(seed, n):
+    """n lanes of the mask, kinds drawn with numpy: on the curve, y moved
+    off the curve, infinity, valid False on the curve, off the curve and
+    invalid, and infinity by its flag alone over off-curve coordinates.
+    Returns ((x, y, inf), valid) as numpy arrays and the oracle's mask."""
+    rng = np.random.default_rng(seed)
+    pool = [bn.g2_mul(bn.G2_GEN, int(k)) for k in rng.integers(1, 1 << 62, size=3)]
+    pts, valid, want, flag_only = [], [], [], []
+    for lane, kind in enumerate(rng.integers(0, 6, size=n)):
+        pt = pool[int(rng.integers(0, 3))]
+        if kind in (1, 4, 5):
+            pt = (pt[0], bn.fq2_add(pt[1], (int(rng.integers(1, 1 << 30)), 0)))
+        if kind == 2:
+            pt = None
+        if kind == 5:
+            flag_only.append(lane)
+        pts.append(pt)
+        valid.append(kind not in (3, 4))
+        want.append(valid[-1] and (kind in (2, 5) or bn.g2_is_on_curve(pt)))
+    x, y, inf = pack_g2(pts)
+    inf[flag_only] = True
+    return (x, y, inf), np.array(valid), want
+
+
+@pytest.mark.parametrize("seed,n", [(14, 12), (15, 40)])
+def test_g2_on_curve_plain_equals_jax_mask_and_valid(seed, n):
+    """PC.g2_on_curve on CPU tensors (its plain twin) equals the JAX
+    package's is_on_curve_affine(G2_OPS) ANDed with valid, and the oracle."""
+    (x, y, inf), valid, want = g2_mask_lanes(seed, n)
+    before = PC.g2_on_curve.launches
+    got = PC.g2_on_curve(tensors((x, y, inf)), torch.as_tensor(valid))
+    assert PC.g2_on_curve.launches == before  # no kernel on the CPU
+    assert got.dtype == torch.bool and got.shape == (n,)
+    jax_mask = np.asarray(JC.is_on_curve_affine(
+        JC.G2_OPS, (x.astype(np.uint32), y.astype(np.uint32), inf))) & valid
+    assert got.tolist() == jax_mask.tolist() == want
+    assert 0 < sum(want) < n
+
+
+def test_g2_on_curve_wrapper_rejects_other_devices():
+    (x, y, inf), valid, _ = g2_mask_lanes(16, 4)
+    bs = tensors((x, y, inf))
+    with pytest.raises(ValueError):
+        PC.g2_on_curve(tuple(t.to("meta") for t in bs), torch.as_tensor(valid).to("meta"))
+    with pytest.raises(ValueError):  # the parts on two devices
+        PC.g2_on_curve(bs, torch.as_tensor(valid).to("meta"))
 
 
 def msm_case(seed, b=4):

@@ -57,6 +57,28 @@ def test_mont_mul_kernel_equals_plain(cuda):
         assert torch.equal(got, F.mont_mul(spec, ta, tb))
 
 
+@pytest.mark.parametrize("b", [1024, 1, 33])
+def test_g2_on_curve_kernel_equals_plain(cuda, b):
+    """The fused K1 at the slice's batch and at ragged sizes, about half
+    the lanes divergent: y off the curve, infinity (by its flag alone over
+    off-curve coordinates on some), valid False; one launch, exact."""
+    rng = np.random.default_rng(68 + b)
+    pool = [bn.g2_mul(bn.G2_GEN, int(k)) for k in rng.integers(1, 1 << 62, size=4)]
+    kind = rng.integers(0, 6, size=b)  # 0-2 on the curve, 3 off, 4 infinity, 5 invalid
+    pts = [pool[i % 4] if k not in (3, 4) else (pool[i % 4][0], bn.fq2_add(pool[i % 4][1], (1, 0)))
+           for i, k in enumerate(kind)]
+    pts = [None if k == 4 and i % 2 else p for i, (k, p) in enumerate(zip(kind, pts))]
+    x, y, inf = pack_g2(pts)
+    inf |= kind == 4
+    bs, valid = on(cuda, (x, y, inf)), torch.as_tensor(kind != 5, device=cuda)
+    before = PC.g2_on_curve.launches
+    got = PC.g2_on_curve(bs, valid)
+    assert PC.g2_on_curve.launches == before + 1
+    want = PC.g2_on_curve(tuple(t.cpu() for t in bs), valid.cpu())
+    assert torch.equal(got.cpu(), want)
+    assert want.tolist() == [bool(k in (0, 1, 2, 4)) for k in kind]
+
+
 def test_msm_affine_kernel_equals_plain(cuda):
     rng = random.Random(62)
     pool = points(rng, 4)
@@ -165,7 +187,8 @@ def test_slice_on_cuda(cuda):
     ok = Groth16BatchVerifier(vec.vk, device="cuda").verify_batch(proofs, inputs)
     assert ok.tolist() == [i != 3 for i in range(B)]
     launches = PC.launch_counts()
-    assert all(launches[k] > 0 for k in ("mont_mul", "msm_affine", "miller_mixed", "final_exp"))
+    assert all(launches[k] > 0 for k in ("msm_affine", "miller_mixed", "final_exp"))
+    assert launches["g2_on_curve"] == 1 and launches["mont_mul"] == 0
 
 
 def test_miller_product_kernel_equals_plain(cuda):
