@@ -12,7 +12,7 @@ It builds the port's CUDA kernels from csrc/, then
      lanes against the oracle, at the batched path's shapes (batch 1024,
      with edge lanes), then on inputs where about half the lanes take the
      infinity or skip branches (and K2 on 9 points), and times kernel and
-     twin, each warm; then K2 (11, 7, 2 and 1 points, every MSM of a PlonK
+     twin, each warm (the fused K1 alone in a CUDA graph too); then K2 (11, 7, 2 and 1 points, every MSM of a PlonK
      single), K4 and K5 (3 and 2 pairs) at batch one, the single-proof
      path's shapes, exact against their twins and timed on those inputs;
      and computes each kernel's bound from the work its twin counts on one
@@ -101,6 +101,29 @@ def time_kernel(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_graph(fn, iters: int) -> float:
+    """Mean ms of the kernel that ``fn`` launches, on the card alone:
+    ``iters`` launches captured in one CUDA graph, its replay timed by CUDA
+    events, so no host launch time sits between the kernels. ``fn`` must
+    launch on the current stream."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def time_plain(fn, warm_up=True):
     """(result, ms) of a plain twin on the card: one warm-up call (torch's
     lazy CUDA start-up; skipped where the twin already ran on the card at
@@ -140,39 +163,6 @@ def count_fp_muls(fn) -> int:
     finally:
         F.mont_mul = real
     return count[0]
-
-
-def count_aten_calls(fn) -> int:
-    """ATen calls fn() makes on CPU tensors (a TorchDispatchMode count),
-    each Montgomery product counted as one call: the eager launches of a
-    plain twin whose products go through K1, as the G2 mask's did before
-    its fused form."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    from snark_bn254_verifier_tpu_torch.ops import field as F
-
-    real, state = F.mont_mul, {"calls": 0, "in_product": False}
-
-    class Count(TorchDispatchMode):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            state["calls"] += not state["in_product"]
-            return func(*args, **(kwargs or {}))
-
-    def one_call(spec, a, b):
-        state["calls"] += 1
-        state["in_product"] = True
-        try:
-            return real(spec, a, b)
-        finally:
-            state["in_product"] = False
-
-    F.mont_mul = one_call
-    try:
-        with Count():
-            fn()
-    finally:
-        F.mont_mul = real
-    return state["calls"]
 
 
 def bound(fp_muls: int, nbytes: int) -> dict:
@@ -264,59 +254,46 @@ def phase_mont_mul(ctx):
 
 
 def phase_g2_on_curve(ctx):
-    import numpy as np
     import torch
 
-    from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
-    from snark_bn254_verifier_tpu_torch.models.packing import pack_g2, unpack_fq
+    from snark_bn254_verifier_tpu_torch.fixtures.g2_lanes import g2_mask_lanes
     from snark_bn254_verifier_tpu_torch.ops import _build
     from snark_bn254_verifier_tpu_torch.ops import curve as C
     from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
 
     b = ctx.batch
-    # about half the lanes divergent: kinds 0-2 on the curve, 3 y moved off
-    # it, 4 infinity (by its flag alone over off-curve coordinates on odd
-    # lanes), 5 valid False; lanes 0-5 each kind, lane 6 off and invalid
-    kind = ctx.rng.integers(0, 6, size=b)
-    kind[:7] = [0, 3, 4, 4, 5, 3, 3]
-    valid = (kind != 5) & (np.arange(b) != 6)
-    pts = [(p[0], bn.fq2_add(p[1], (int(ctx.rng.integers(1, 1 << 30)), 0))) if k in (3, 4) else p
-           for p, k in zip(ctx.lanes(ctx.g2_pool, b), kind)]
-    pts = [None if k == 4 and lane % 2 == 0 else p for lane, (k, p) in enumerate(zip(kind, pts))]
-    x, y, inf = pack_g2(pts)
-    inf |= kind == 4
+    # half the lanes divergent; lanes 0-6: on, off, infinity by its flag
+    # alone, infinity, invalid, off, off and invalid
+    x, y, inf, valid, want = g2_mask_lanes(
+        SEED, b, head=("on", "off", "inf_flag", "inf", "invalid", "off", "off_invalid"))
     bs = tuple(torch.as_tensor(a, device=ctx.dev) for a in (x, y, inf))
     tvalid = torch.as_tensor(valid, device=ctx.dev)
     got = PC.g2_on_curve(bs, tvalid)
-    want, plain_ms = time_plain(lambda: C.g2_on_curve(bs, tvalid))
-    err = int((got != want).sum().item())
+    plain, plain_ms = time_plain(lambda: C.g2_on_curve(bs, tvalid))
+    err = int((got != plain).sum().item())
     require(err == 0, "g2_on_curve differs from its plain twin")
-    lanes = list(range(8))
-    xs = [unpack_fq(bs[0][:, c, lanes].cpu().numpy()) for c in (0, 1)]
-    ys = [unpack_fq(bs[1][:, c, lanes].cpu().numpy()) for c in (0, 1)]
-    host = got[lanes].cpu().tolist()
-    for k, lane in enumerate(lanes):
-        pt = ((xs[0][k], xs[1][k]), (ys[0][k], ys[1][k]))
-        require(host[k] == bool(valid[lane] and (inf[lane] or bn.g2_is_on_curve(pt))),
-                f"g2_on_curve lane {lane} != oracle")
-    require(host[:7] == [True, False, True, True, False, False, False],
+    require(got.cpu().tolist() == want, "g2_on_curve differs from the oracle")
+    require(want[:7] == [True, False, True, True, False, False, False],
             "g2_on_curve edge lanes 0-6 wrong")
-    ms = time_kernel(lambda: PC.g2_on_curve(bs, tvalid), 50)
-    # the C entry alone, without the wrapper's checks and allocation: the
-    # launch and the kernel (the same output rewritten)
-    lib, stream = _build.load_kernels().lib, torch.cuda.current_stream().cuda_stream
+    # the kernel alone (a graph of C-entry launches), the C entry's and the
+    # wrapper's back-to-back call rates; each rewrites the same output
+    lib = _build.load_kernels().lib
     ptrs = [t.data_ptr() for t in (*bs, tvalid, got)]
-    c_entry_ms = time_kernel(lambda: lib.bn_g2_on_curve(*ptrs, b, stream), 200)
-    require(torch.equal(got, want), "g2_on_curve changed under the timed C entry")
-    print(f"K1 g2_on_curve B={b}, {int(((kind >= 3) | ~valid).sum())} lanes off the curve, "
-          f"at infinity or invalid: exact vs plain, oracle ok ({len(lanes)} lanes); "
-          f"kernel {ms:.4f} ms (C entry alone {c_entry_ms:.4f} ms), plain {plain_ms:.3f} ms (warm)")
+
+    def c_entry():
+        lib.bn_g2_on_curve(*ptrs, b, torch.cuda.current_stream().cuda_stream)
+
+    ms = time_graph(c_entry, 1000)
+    c_entry_ms = time_kernel(c_entry, 200)
+    wrapper_ms = time_kernel(lambda: PC.g2_on_curve(bs, tvalid), 50)
+    require(torch.equal(got, plain), "g2_on_curve changed under the timed launches")
+    print(f"K1 g2_on_curve B={b}, {b - sum(want)} lanes False, {int(inf.sum())} at infinity: "
+          f"exact vs plain and oracle; kernel {ms:.5f} ms (graph), C entry {c_entry_ms:.4f} ms, "
+          f"wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.3f} ms (warm)")
     # the work is data-independent: lane 0, on the curve
     per_lane = count_fp_muls(lambda: PC.g2_on_curve(*lane_cpu((bs, tvalid), 0)))
-    unfused = count_aten_calls(lambda: PC.g2_on_curve(*lane_cpu((bs, tvalid), 0)))
-    print(f"K1 g2_on_curve: the plain twin makes {unfused} ATen calls (products as one each)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "c_entry_ms": c_entry_ms,
-            "aten_calls_unfused": unfused, "shape": [16, 2, b],
+            "wrapper_ms": wrapper_ms, "shape": [16, 2, b],
             **bound(per_lane * b, nbytes(*bs, tvalid, got))}
 
 

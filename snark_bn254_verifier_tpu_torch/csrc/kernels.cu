@@ -22,7 +22,7 @@
 // edge. K1 is a short elementwise pass, one element per thread. On the
 // TPU the G2 on-curve mask is one jitted program around K1's products; run
 // as K1 launches between eager torch ops it cost hundreds of ATen calls a
-// batch, so g2_on_curve does the whole check of a lane in one thread: 9 Fp
+// batch, so g2_on_curve does the whole check of a lane in one thread: 7 Fp
 // products and 259 bytes a lane, bound by launch overhead at batch 1024.
 // Neighbouring threads read neighbouring limbs, so the loads coalesce.
 #include <cuda_runtime.h>

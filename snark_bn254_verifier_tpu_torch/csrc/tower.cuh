@@ -109,6 +109,16 @@ BN_INLINE void fq2_mul_in(fq2& r, const fq2& a, const fq2& b) {
 
 BN_NOINLINE void fq2_mul(fq2& r, const fq2& a, const fq2& b) { fq2_mul_in(r, a, b); }
 
+// Square, inlined: (a0 + a1)(a0 - a1) + 2 a0 a1 u, two products.
+BN_INLINE void fq2_sq_in(fq2& r, const fq2& a) {
+  fp s, d, t;
+  fp_add<FQ>(s, a.c0, a.c1);
+  fp_sub<FQ>(d, a.c0, a.c1);
+  fp_mul<FQ>(t, a.c0, a.c1);
+  fp_mul<FQ>(r.c0, s, d);
+  fp_add<FQ>(r.c1, t, t);
+}
+
 BN_INLINE void fq2_sq(fq2& r, const fq2& a) { fq2_mul(r, a, a); }
 
 BN_NOINLINE void fq2_inv(fq2& r, const fq2& a) {

@@ -75,18 +75,14 @@ G1_OPS = CurveOps(
 )
 
 
-def _fq2_mul(a, b):
-    return T.fq2_mul_many([(a, b)])[0]
-
-
 G2_OPS = CurveOps(
     name="g2",
     add=T.fq2_add,
     sub=T.fq2_sub,
     neg=T.fq2_neg,
-    mul=_fq2_mul,
+    mul=T.fq2_mul,
     mul_many=T.fq2_mul_many,
-    sq=lambda a: _fq2_mul(a, a),
+    sq=T.fq2_sq,
     inv=T.fq2_inv,
     is_zero=T.fq2_is_zero,
     eq=T.fq2_eq,

@@ -88,7 +88,12 @@ def fq2_mul(a, b):
 
 
 def fq2_sq(a):
-    return fq2_mul(a, a)
+    """(a0 + a1)(a0 - a1) + 2 a0 a1 u: two products in one Montgomery call,
+    as csrc/tower.cuh::fq2_sq_in."""
+    a0, a1 = a[:, 0], a[:, 1]
+    t = F.fq_mul(torch.stack([F.fq_add(a0, a1), a0], 1),
+                 torch.stack([F.fq_sub(a0, a1), a1], 1))
+    return torch.stack([t[:, 0], F.fq_add(t[:, 1], t[:, 1])], 1)
 
 
 def fq2_mul_fq(a, s):

@@ -3,8 +3,9 @@ the host C++ compiler into a test-only library (csrc/host_check.cc) and run
 against the oracle and the plain twins, the team kernels with one host
 thread per team thread. Covers the 16<->32-bit limb conversion, the 32-bit
 CIOS, the fused K1's G2 on-curve mask, the teams' Fq12 product, K2's MSM
-team, final_exp(miller_mixed) and K5's Miller-product team without a card, each kernel's code with the form
-of the Montgomery product its unit runs on the card. Skips where no host
+team, final_exp(miller_mixed) and K5's Miller-product team without a card,
+each kernel's code with the form of the Montgomery product its unit runs
+on the card. Skips where no host
 C++ compiler is installed."""
 
 import random
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from snark_bn254_verifier_tpu.oracle import bn254 as bn
+from snark_bn254_verifier_tpu_torch.fixtures.g2_lanes import g2_mask_lanes
 from snark_bn254_verifier_tpu_torch.models.packing import (
     pack_fq12,
     pack_g1,
@@ -84,35 +86,6 @@ def test_fq_inverse_matches_oracle(lib, lib_rolled, binary):
     host = lib_rolled if binary else lib
     assert host.host_fq_inv(ptr(a), ptr(out), a.shape[1], binary) == 0
     assert FQ.unpack(out.numpy()) == [pow(v, bn.P - 2, bn.P) for v in vals]
-
-
-def g2_mask_lanes(seed, n):
-    """n lanes of the G2 on-curve mask, kinds drawn with numpy: on the
-    curve, y moved off it, infinity, invalid, off and invalid, random
-    coordinates below p, and infinity by its flag alone over random ones.
-    Returns x, y (16, 2, n) int32, inf, valid (n,) bool and the oracle's
-    mask."""
-    rng = np.random.default_rng(seed)
-    pool = [bn.g2_mul(bn.G2_GEN, int(k)) for k in rng.integers(1, 1 << 62, size=3)]
-
-    def rand_fq2():
-        return tuple(int.from_bytes(rng.bytes(32), "little") % bn.P for _ in range(2))
-
-    pts, valid, flag_only = [], [], []
-    for lane, kind in enumerate(rng.integers(0, 7, size=n)):
-        pt = pool[int(rng.integers(0, 3))]
-        if kind in (1, 4):
-            pt = (pt[0], bn.fq2_add(pt[1], (int(rng.integers(1, 1 << 30)), 0)))
-        elif kind in (5, 6):
-            pt = (rand_fq2(), rand_fq2())
-        pts.append(None if kind == 2 else pt)
-        valid.append(kind not in (3, 4))
-        if kind == 6:
-            flag_only.append(lane)
-    x, y, inf = pack_g2(pts)
-    inf[flag_only] = True
-    want = [v and (i or bn.g2_is_on_curve(p)) for v, i, p in zip(valid, inf, pts)]
-    return x, y, inf, np.array(valid), want
 
 
 @pytest.mark.parametrize("n", [1, 33, 130])

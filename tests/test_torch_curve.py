@@ -13,6 +13,7 @@ import torch
 from snark_bn254_verifier_tpu.models import jax_backend as JB
 from snark_bn254_verifier_tpu.oracle import bn254 as bn
 from snark_bn254_verifier_tpu.ops import curve as JC
+from snark_bn254_verifier_tpu_torch.fixtures.g2_lanes import g2_mask_lanes
 from snark_bn254_verifier_tpu_torch.models.packing import pack_g1, pack_g2, unpack_fq
 from snark_bn254_verifier_tpu_torch.ops import curve as C
 from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
@@ -38,35 +39,11 @@ def test_g2_on_curve_mask_matches_jax():
     assert PC.g2_on_curve(tensors((x, y, inf)), valid).tolist() == got.tolist()
 
 
-def g2_mask_lanes(seed, n):
-    """n lanes of the mask, kinds drawn with numpy: on the curve, y moved
-    off the curve, infinity, valid False on the curve, off the curve and
-    invalid, and infinity by its flag alone over off-curve coordinates.
-    Returns ((x, y, inf), valid) as numpy arrays and the oracle's mask."""
-    rng = np.random.default_rng(seed)
-    pool = [bn.g2_mul(bn.G2_GEN, int(k)) for k in rng.integers(1, 1 << 62, size=3)]
-    pts, valid, want, flag_only = [], [], [], []
-    for lane, kind in enumerate(rng.integers(0, 6, size=n)):
-        pt = pool[int(rng.integers(0, 3))]
-        if kind in (1, 4, 5):
-            pt = (pt[0], bn.fq2_add(pt[1], (int(rng.integers(1, 1 << 30)), 0)))
-        if kind == 2:
-            pt = None
-        if kind == 5:
-            flag_only.append(lane)
-        pts.append(pt)
-        valid.append(kind not in (3, 4))
-        want.append(valid[-1] and (kind in (2, 5) or bn.g2_is_on_curve(pt)))
-    x, y, inf = pack_g2(pts)
-    inf[flag_only] = True
-    return (x, y, inf), np.array(valid), want
-
-
 @pytest.mark.parametrize("seed,n", [(14, 12), (15, 40)])
 def test_g2_on_curve_plain_equals_jax_mask_and_valid(seed, n):
     """PC.g2_on_curve on CPU tensors (its plain twin) equals the JAX
     package's is_on_curve_affine(G2_OPS) ANDed with valid, and the oracle."""
-    (x, y, inf), valid, want = g2_mask_lanes(seed, n)
+    x, y, inf, valid, want = g2_mask_lanes(seed, n)  # every kind of lane first
     before = PC.g2_on_curve.launches
     got = PC.g2_on_curve(tensors((x, y, inf)), torch.as_tensor(valid))
     assert PC.g2_on_curve.launches == before  # no kernel on the CPU
@@ -78,7 +55,7 @@ def test_g2_on_curve_plain_equals_jax_mask_and_valid(seed, n):
 
 
 def test_g2_on_curve_wrapper_rejects_other_devices():
-    (x, y, inf), valid, _ = g2_mask_lanes(16, 4)
+    x, y, inf, valid, _ = g2_mask_lanes(16, 4)
     bs = tensors((x, y, inf))
     with pytest.raises(ValueError):
         PC.g2_on_curve(tuple(t.to("meta") for t in bs), torch.as_tensor(valid).to("meta"))

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from snark_bn254_verifier_tpu_torch import Groth16BatchVerifier, Groth16Verifier
+from snark_bn254_verifier_tpu_torch.fixtures.g2_lanes import g2_mask_lanes
 from snark_bn254_verifier_tpu_torch.fixtures.gen import gen_groth16_vector
 from snark_bn254_verifier_tpu_torch.models.packing import pack_g1, pack_g2, pair_major
 from snark_bn254_verifier_tpu_torch.ops import curve as C
@@ -60,23 +61,16 @@ def test_mont_mul_kernel_equals_plain(cuda):
 @pytest.mark.parametrize("b", [1024, 1, 33])
 def test_g2_on_curve_kernel_equals_plain(cuda, b):
     """The fused K1 at the slice's batch and at ragged sizes, about half
-    the lanes divergent: y off the curve, infinity (by its flag alone over
-    off-curve coordinates on some), valid False; one launch, exact."""
-    rng = np.random.default_rng(68 + b)
-    pool = [bn.g2_mul(bn.G2_GEN, int(k)) for k in rng.integers(1, 1 << 62, size=4)]
-    kind = rng.integers(0, 6, size=b)  # 0-2 on the curve, 3 off, 4 infinity, 5 invalid
-    pts = [pool[i % 4] if k not in (3, 4) else (pool[i % 4][0], bn.fq2_add(pool[i % 4][1], (1, 0)))
-           for i, k in enumerate(kind)]
-    pts = [None if k == 4 and i % 2 else p for i, (k, p) in enumerate(zip(kind, pts))]
-    x, y, inf = pack_g2(pts)
-    inf |= kind == 4
-    bs, valid = on(cuda, (x, y, inf)), torch.as_tensor(kind != 5, device=cuda)
+    the lanes divergent (fixtures/g2_lanes.py: y off the curve, infinity,
+    by its flag alone over off-curve coordinates too, valid False, random
+    coordinates); one launch, exact against the plain twin and the oracle."""
+    x, y, inf, valid, want = g2_mask_lanes(68 + b, b)
+    bs, valid = on(cuda, (x, y, inf)), torch.as_tensor(valid, device=cuda)
     before = PC.g2_on_curve.launches
     got = PC.g2_on_curve(bs, valid)
     assert PC.g2_on_curve.launches == before + 1
-    want = PC.g2_on_curve(tuple(t.cpu() for t in bs), valid.cpu())
-    assert torch.equal(got.cpu(), want)
-    assert want.tolist() == [bool(k in (0, 1, 2, 4)) for k in kind]
+    assert torch.equal(got.cpu(), PC.g2_on_curve(tuple(t.cpu() for t in bs), valid.cpu()))
+    assert got.cpu().tolist() == want
 
 
 def test_msm_affine_kernel_equals_plain(cuda):
