@@ -12,17 +12,26 @@ It builds the port's CUDA kernels from csrc/, then
      lanes against the oracle, at the batched path's shapes (batch 1024,
      with edge lanes), then on inputs where about half the lanes take the
      infinity or skip branches (and K2 on 9 points), and times kernel and
-     twin, each warm (the fused K1 alone in a CUDA graph too); then K2 (11, 7, 2 and 1 points, every MSM of a PlonK
-     single), K4 and K5 (3 and 2 pairs) at batch one, the single-proof
-     path's shapes, exact against their twins and timed on those inputs;
-     and computes each kernel's bound from the work its twin counts on one
-     lane;
-  2. drives the batched path, ``Groth16BatchVerifier(vk, device="cuda")``
-     on a batch of 1024 proofs of the bench vector with bad lanes at fixed
-     positions, checks the exact bool vector and that its kernels (K1 in
-     its fused form g2_on_curve, exactly once, and K2-K4) were launched,
-     checks a small batch against the CPU run, and times warm batches;
-  3. drives the single-proof path, ``Groth16Verifier.verify`` and
+     twin, each warm (K1, elementwise and fused, alone in a CUDA graph
+     too); then K2 (11, 11 and 2 points) and K3 (fixed-only, two pairs) on
+     the inputs of one PlonK batch of 1024, recorded as it ran; then K2
+     (11, 7, 2 and 1 points, every MSM of a PlonK single), K4 and K5 (3
+     and 2 pairs) at batch one, the single-proof path's shapes, exact
+     against their twins and timed on those inputs; and computes each
+     kernel's bound from the work its twin counts on one lane;
+  2. drives the batched Groth16 path, ``Groth16BatchVerifier(vk,
+     device="cuda")`` on a batch of 1024 proofs of the bench vector with
+     bad lanes at fixed positions, checks the exact bool vector and that
+     its kernels (K1 in its fused form g2_on_curve, exactly once, and
+     K2-K4) were launched, checks a small batch against the CPU run, and
+     times warm batches;
+  3. drives the PlonK batch, ``PlonkBatchVerifier(vk, device="cuda")`` on
+     1024 lanes of the synthetic BSB22 vector with bad lanes of every kind
+     spread over the batch (fixtures/plonk_lanes.py), checks the exact
+     bool vector, that each batch launches K2 three times, K3 once with no
+     variable pair, K4 once and nothing else, and the first 8 lanes
+     against the CPU run, and times warm batches with their stages;
+  4. drives the single-proof path, ``Groth16Verifier.verify`` and
      ``PlonkVerifier.verify`` with ``device="cuda"``, on a good proof, a
      wrong input value, a wrong input count, a corrupted proof byte and,
      for PlonK, a doubled opening proof that fails in the pairing check;
@@ -44,6 +53,7 @@ device it exits non-zero at once.
 
 from __future__ import annotations
 
+import functools
 import json
 import random
 import subprocess
@@ -187,6 +197,70 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def run_recorded(fn):
+    """(fn(), [(kernel, args), ...]): fn run with the arguments of every
+    kernel wrapper that parallel/batch.py calls recorded. The batch module
+    is handed recording stand-ins for its ``PC`` (ops/pairing_cuda.py),
+    restored after; the wrappers and their launch counts stay the real
+    ones."""
+    import types
+
+    from snark_bn254_verifier_tpu_torch.parallel import batch
+
+    real = batch.PC
+    calls = []
+
+    def recorder(name):
+        def rec(*args):
+            calls.append((name, args))
+            return getattr(real, name)(*args)
+        return rec
+
+    batch.PC = types.SimpleNamespace(
+        **{name: recorder(name) for name in real.KERNEL_ENTRY_POINTS})
+    try:
+        out = fn()
+    finally:
+        batch.PC = real
+    return out, calls
+
+
+@functools.lru_cache(maxsize=None)
+def plonk_inputs(batch: int):
+    """The PlonK batch: gen_plonk_vector(0) at ``batch`` lanes with bad
+    lanes at fixed positions, four in the first eight (the lanes checked
+    against the CPU run), then one every 37 lanes through every kind
+    (fixtures/plonk_lanes.py). Returns (vector, proofs, inputs, expected)."""
+    from snark_bn254_verifier_tpu_torch.fixtures.plonk_lanes import KINDS, plonk_batch_lanes
+
+    bad = {1: "truncated", 3: "opening_doubled", 5: "claimed0", 6: "shifted_doubled"}
+    bad.update({lane: KINDS[k % len(KINDS)] for k, lane in enumerate(range(40, batch, 37))})
+    return plonk_batch_lanes(batch, bad)
+
+
+def plonk_rng():
+    """The KZG randomisers of the PlonK batch, seeded."""
+    from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
+
+    rng = random.Random(SEED)
+    return lambda: rng.randrange(1, bn.R)
+
+
+def plonk_kernel_args(ctx):
+    """The kernels' arguments of one PlonK batch on the card, at the main
+    path's shapes and on its data; recorded once, for the K2 and K3
+    phases."""
+    from snark_bn254_verifier_tpu_torch import PlonkBatchVerifier
+
+    if ctx.plonk_calls is None:
+        vec, proofs, inputs, expected = plonk_inputs(ctx.batch)
+        ver = PlonkBatchVerifier(vec.vk, device="cuda")
+        ok, ctx.plonk_calls = run_recorded(
+            lambda: ver.verify_batch(proofs, inputs, rng=plonk_rng()))
+        require(ok.tolist() == expected, "PlonK batch bool vector wrong (kernel inputs)")
+    return ctx.plonk_calls
+
+
 class Ctx:
     """Shared inputs of the phases: seeded generators and oracle pools."""
 
@@ -204,6 +278,7 @@ class Ctx:
         self.g2_pool = [bn.g2_mul(bn.G2_GEN, prng.randrange(1, bn.R)) for _ in range(4)]
         self.q_fixed = [bn.g2_mul(bn.G2_GEN, prng.randrange(1, bn.R)) for _ in range(2)]
         self.miller_out = None  # K3's output, K4's input
+        self.plonk_calls = None  # the kernels' arguments of one PlonK batch
 
     def rand_limbs(self, modulus: int, shape):
         """Uniform values below the modulus's top limb: (16, *shape) int32."""
@@ -221,10 +296,12 @@ class Ctx:
 def phase_mont_mul(ctx):
     import torch
 
+    from snark_bn254_verifier_tpu_torch.ops import _build
     from snark_bn254_verifier_tpu_torch.ops import field as F
     from snark_bn254_verifier_tpu_torch.ops import field_cuda as FC
     from snark_bn254_verifier_tpu_torch.ops.limbs import FQ, FR, limbs_batch_to_ints
 
+    lib = _build.load_kernels().lib
     rows = {}
     # Fq at the shape the G2 mask gave K1 before its fused form (three
     # products a lane); Fr at one product per lane
@@ -243,14 +320,22 @@ def phase_mont_mul(ctx):
         fa, fb, fo = (x.reshape(16, -1)[:, :8].cpu().numpy() for x in (a, b, got))
         for x, y, z in zip(limbs_batch_to_ints(fa), limbs_batch_to_ints(fb), limbs_batch_to_ints(fo)):
             require(z == x * y * spec.r_inv % spec.modulus, f"mont_mul[{spec.name}] != oracle")
-        ms = time_kernel(lambda: FC.mont_mul(spec, a, b), 50)
-        rows[spec.name] = (tuple(a.shape), err, ms, plain_ms,
+        # the kernel alone (a graph of C-entry launches rewriting ``got``)
+        # and the wrapper's back-to-back call rate
+        ptrs = (a.data_ptr(), b.data_ptr(), got.data_ptr(), got[0].numel(),
+                0 if spec is FQ else 1)
+        ms = time_graph(
+            lambda: lib.bn_mont_mul(*ptrs, torch.cuda.current_stream().cuda_stream), 1000)
+        wrapper_ms = time_kernel(lambda: FC.mont_mul(spec, a, b), 50)
+        require(torch.equal(got, want), f"mont_mul[{spec.name}] changed under the timed launches")
+        rows[spec.name] = (tuple(a.shape), err, ms, wrapper_ms, plain_ms,
                            bound(a[0].numel(), nbytes(a, b, got)))
         print(f"K1 mont_mul {spec.name} {tuple(a.shape)}: exact vs plain, oracle ok; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms (warm)")
-    shape, _, ms, plain_ms, bnd = rows["fq"]  # kernel and twin at one field and shape
+              f"kernel {ms:.5f} ms (graph), wrapper {wrapper_ms:.4f} ms, "
+              f"plain {plain_ms:.3f} ms (warm)")
+    shape, _, ms, wrapper_ms, plain_ms, bnd = rows["fq"]  # kernel and twin at one field and shape
     return {"max_abs_err": max(r[1] for r in rows.values()), "ms": ms, "plain_ms": plain_ms,
-            "shape": list(shape), **bnd}
+            "wrapper_ms": wrapper_ms, "shape": list(shape), **bnd}
 
 
 def phase_g2_on_curve(ctx):
@@ -390,6 +475,28 @@ def phase_msm_affine(ctx):
     check_msm(ctx, "9 points", pts, sc, list(range(0, ctx.batch, ctx.batch // 16)), twin=False)
     out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": [3, 16, ctx.batch],
            **bnd}
+    # the PlonK batch's three MSMs at batch 1024, on its own inputs (dead
+    # lanes hold G1_GEN and zero scalars; the combo's digest is at
+    # infinity there): the linearisation (n = 11), the combo (n = 11) and
+    # the quotient (n = 2); work counted on lane 0, a good proof
+    msm_calls = [args for name, args in plonk_kernel_args(ctx) if name == "msm_affine"]
+    require(len(msm_calls) == 3, "the PlonK batch made other than three K2 calls")
+    for label, args in zip(("plonk_lin", "plonk_combo", "plonk_quot"), msm_calls):
+        got = PC.msm_affine(*args)
+        want, plain = time_plain(lambda: C.msm_affine(*args), warm_up=False)
+        e = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]),
+                int((got[2] != want[2]).sum().item()))
+        require(e == 0, f"msm_affine ({label}) differs from its plain twin")
+        out["max_abs_err"] = max(out["max_abs_err"], e)
+        k_ms = time_kernel(lambda: PC.msm_affine(*args), 3)
+        bnd_p = bound(count_fp_muls(lambda: C.msm_affine(*lane_cpu(args, 0))) * ctx.batch,
+                      nbytes(*args[0], args[1], *got))
+        out.update({f"ms_{label}": k_ms, f"plain_ms_{label}": plain,
+                    f"bound_ms_{label}": bnd_p["bound_ms"], f"fp_muls_{label}": bnd_p["fp_muls"],
+                    f"share_of_bound_{label}": bnd_p["bound_ms"] / k_ms,
+                    f"shape_{label}": list(args[1].shape)})
+        print(f"K2 msm_affine {label} n={args[1].shape[0]} B={ctx.batch}: exact vs plain; "
+              f"kernel {k_ms:.3f} ms, plain {plain:.1f} ms, bound {bnd_p['bound_ms']:.4f} ms")
     # the single-proof path's shapes, batch one: every MSM of a PlonK
     # single (11, 7, 2 and 1 points; a g1_mul is one point); timed on the
     # inputs that were compared
@@ -479,7 +586,29 @@ def phase_miller_mixed(ctx):
             bnd = bound(per_lane * b, nbytes(*flat, lines, tails, got))
         print(msg)
         err = max(err, e)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": [16, 12, b], **bnd}
+    out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": [16, 12, b], **bnd}
+    # fixed-only (nf = 2) on the PlonK batch's own inputs: (combo, -quot)
+    # over the KZG [1]_2 and [x]_2 tables; work counted on lane 0
+    (args,) = [a for name, a in plonk_kernel_args(ctx) if name == "miller_mixed"]
+    require(args[0] is None and args[1] is None and len(args[2]) == 2,
+            "the PlonK batch's K3 call is not fixed-only with two pairs")
+    got = PC.miller_mixed(*args)
+    want, plain = time_plain(lambda: PR.miller_mixed(*args), warm_up=False)
+    e = max_abs_err(got, want)
+    require(e == 0, "miller_mixed (PlonK batch, fixed-only) differs from its plain twin")
+    k_ms = time_kernel(lambda: PC.miller_mixed(*args), 3)
+    fixed, p_lines, p_tails = args[2], args[3], args[4]
+    bnd_p = bound(count_fp_muls(lambda: PR.miller_mixed(None, None, lane_cpu(fixed, 0),
+                                                        p_lines.cpu(), p_tails.cpu())) * b,
+                  nbytes(*[t for pt in fixed for t in pt], p_lines, p_tails, got))
+    out.update({"max_abs_err": max(err, e), "ms_plonk_fixed_only": k_ms,
+                "plain_ms_plonk_fixed_only": plain,
+                "bound_ms_plonk_fixed_only": bnd_p["bound_ms"],
+                "fp_muls_plonk_fixed_only": bnd_p["fp_muls"],
+                "share_of_bound_plonk_fixed_only": bnd_p["bound_ms"] / k_ms})
+    print(f"K3 miller_mixed PlonK batch fixed-only nf=2 B={b}: exact vs plain; kernel "
+          f"{k_ms:.3f} ms, plain {plain:.1f} ms, bound {bnd_p['bound_ms']:.4f} ms")
+    return out
 
 
 def phase_final_exp(ctx):
@@ -645,6 +774,7 @@ KERNEL_PHASES = {
 # The kernels each path launches; together they cover KERNEL_ENTRY_POINTS
 # but UNLAUNCHED, K1's elementwise form (its fused form runs on the slice).
 SLICE_KERNELS = ("g2_on_curve", "msm_affine", "miller_mixed", "final_exp")
+PLONK_BATCH_KERNELS = ("msm_affine", "miller_mixed", "final_exp")
 SINGLE_KERNELS = ("msm_affine", "final_exp", "miller_product")
 UNLAUNCHED = ("mont_mul",)
 
@@ -722,6 +852,63 @@ def run_slice(batch: int, iters: int):
     print(f"slice warm: {iters} runs, batch s {[round(t, 4) for t in times]}, "
           f"{batch / best:.1f} proofs/s (best), {batch * iters / sum(times):.1f} proofs/s (mean)")
     print("slice stage ms (mean): " + json.dumps({k: round(v, 3) for k, v in mean_stage.items()}))
+    return launches
+
+
+def run_plonk_batch(batch: int, iters: int):
+    """The PlonK batch on the card: the exact bool vector, per batch three
+    K2 launches, one fixed-only K3, one K4 and no other launch; the first
+    8 lanes equal to the CPU run; then warm batches timed."""
+    import numpy as np
+
+    from snark_bn254_verifier_tpu_torch import PlonkBatchVerifier
+    from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
+
+    vec, proofs, inputs, expected = plonk_inputs(batch)
+    want = {name: 0 for name in PC.KERNEL_ENTRY_POINTS}
+    want.update(msm_affine=3, miller_mixed=1, final_exp=1)
+    ver = PlonkBatchVerifier(vec.vk, device="cuda")
+    ver._kzg_tables()  # once-per-VK host work, outside the counted run
+    PC.reset_launch_counts()
+    ok, calls = run_recorded(lambda: ver.verify_batch(proofs, inputs, rng=plonk_rng()))
+    launches = PC.launch_counts()
+    require(ok.tolist() == expected, f"PlonK batch bool vector wrong: False at "
+            f"{np.flatnonzero(~ok).tolist()}, expected {[i for i, e in enumerate(expected) if not e]}")
+    require(launches == want, f"PlonK batch launches {launches}, expected {want}")
+    (mm,) = [args for name, args in calls if name == "miller_mixed"]
+    require(mm[0] is None and mm[1] is None and len(mm[2]) == 2,
+            "the PlonK batch's K3 launch has a variable pair")
+    print(f"PlonK batch B={batch}: bool vector exact ({int(ok.sum())} True, "
+          f"{batch - int(ok.sum())} bad lanes), launches {launches}, "
+          f"packer {ver.last_stats.extra['packer']}")
+
+    small = 8
+    cpu = PlonkBatchVerifier(vec.vk, device="cpu").verify_batch(proofs[:small], inputs[:small],
+                                                               rng=plonk_rng())
+    require(cpu.tolist() == ok[:small].tolist(),
+            f"PlonK batch: CUDA and CPU runs disagree on the first {small} lanes")
+    print(f"PlonK batch: first {small} lanes equal to the CPU run")
+
+    times, stages = [], []
+    for _ in range(iters):
+        PC.reset_launch_counts()
+        t0 = time.perf_counter()
+        ok = ver.verify_batch(proofs, inputs)
+        times.append(time.perf_counter() - t0)
+        require(ok.tolist() == expected, "PlonK batch bool vector changed between runs")
+        require(PC.launch_counts() == want, "PlonK batch launches changed between runs")
+        stages.append(ver.last_stats.extra["stage_ms"])
+    best = min(times)
+    mean_stage = {k: sum(s[k] for s in stages) / len(stages) for k in stages[0]}
+    mean_stage["host_ms"] = sum(mean_stage[k] for k in (
+        "parse_ms", "host_a_ms", "pack_a_ms", "upload_a_ms", "digest_copy_ms", "host_b_ms",
+        "pack_b_ms", "upload_b_ms"))
+    mean_stage["kernel_stages_ms"] = sum(mean_stage[k] for k in (
+        "msm_a_ms", "msm_b_ms", "miller_ms", "final_exp_ms", "compare_ms"))
+    print(f"PlonK batch warm: {iters} runs, batch s {[round(t, 4) for t in times]}, "
+          f"{batch / best:.1f} proofs/s (best), {batch * iters / sum(times):.1f} proofs/s (mean)")
+    print("PlonK batch stage ms (mean): "
+          + json.dumps({k: round(v, 3) for k, v in mean_stage.items()}))
     return launches
 
 
@@ -923,11 +1110,13 @@ def main() -> int:
     ctx = Ctx(BATCH, SEED)
     results = {name: KERNEL_PHASES[name](ctx) for name in PC.KERNEL_ENTRY_POINTS}
     slice_launches = run_slice(BATCH, ITERS)
+    plonk_launches = run_plonk_batch(BATCH, ITERS)
     single_launches, per_call = run_single(SINGLE_ITERS)
     per_call["slice"] = slice_launches  # one call of verify_batch
-    launches = {name: slice_launches[name] + single_launches[name]
+    per_call["plonk_batch"] = plonk_launches  # one call of PlonkBatchVerifier.verify_batch
+    launches = {name: slice_launches[name] + plonk_launches[name] + single_launches[name]
                 for name in PC.KERNEL_ENTRY_POINTS}
-    require(set(SLICE_KERNELS) | set(SINGLE_KERNELS)
+    require(set(SLICE_KERNELS) | set(PLONK_BATCH_KERNELS) | set(SINGLE_KERNELS)
             == set(PC.KERNEL_ENTRY_POINTS) - set(UNLAUNCHED), "a kernel is launched by no path")
     require(not any(launches[name] for name in UNLAUNCHED), "mont_mul was launched by a path")
 

@@ -13,19 +13,21 @@ parser in csrc/host/), in the JAX package's structure and names.
     ok = Groth16Verifier.verify(proof, vk, public_inputs, device="cuda")
     ok = PlonkVerifier.verify(proof, vk, public_inputs, device="cuda")
 
-    from snark_bn254_verifier_tpu_torch import Groth16BatchVerifier
+    from snark_bn254_verifier_tpu_torch import Groth16BatchVerifier, PlonkBatchVerifier
     ok = Groth16BatchVerifier(vk_bytes, device="cuda").verify_batch(proofs, inputs)
+    ok = PlonkBatchVerifier(vk_bytes, device="cuda").verify_batch(proofs, inputs)
 
-On a CUDA device both paths run through five hand-written kernels
-(csrc/kernels.cu, built by nvcc on first use); on the CPU they run their
-plain PyTorch twins.
+Every entry point defaults to ``device="cuda"`` and raises where there is
+no card. On a CUDA device the paths run through the port's hand-written
+kernels (csrc/, built by nvcc on first use); with ``device="cpu"`` they
+run their plain PyTorch twins.
 """
 
 from .models.groth16 import Groth16Verifier
 from .models.plonk import PlonkVerifier
 from .models.torch_backend import TorchBackend
 from .ops.pairing_cuda import KERNEL_ENTRY_POINTS
-from .parallel.batch import Groth16BatchVerifier
+from .parallel.batch import Groth16BatchVerifier, PlonkBatchVerifier
 
 __all__ = ["Groth16BatchVerifier", "Groth16Verifier", "KERNEL_ENTRY_POINTS",
-           "PlonkVerifier", "TorchBackend"]
+           "PlonkBatchVerifier", "PlonkVerifier", "TorchBackend"]

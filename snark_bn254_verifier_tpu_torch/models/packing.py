@@ -15,10 +15,25 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops.limbs import FQ, FR
+from ..ops.limbs import FQ, FR, NUM_LIMBS
+from ..utils import native
+
+
+def packer() -> str:
+    """The Fq packer ``pack_fq`` runs: "native" (Montgomery form in C,
+    utils/native.py::pack_be_batch) where the host library loads, else
+    "bytes" (ops/limbs.py::FieldSpec.pack)."""
+    return "native" if native.native_available() else "bytes"
 
 
 def pack_fq(values: Sequence[int]) -> np.ndarray:
+    """Fq ints -> (16, B) int32 Montgomery limbs."""
+    if len(values) and native.native_available():
+        try:
+            buf = b"".join([int(v).to_bytes(32, "big") for v in values])
+        except OverflowError:  # negative or wider than 256 bits: reduce first
+            return FQ.pack(values)
+        return native.pack_be_batch(buf, len(values))[0].astype(np.int32)
     return FQ.pack(values)
 
 
@@ -31,25 +46,24 @@ def unpack_fq(arr) -> List[int]:
 
 
 def pack_g1(points) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Oracle G1 points (None = infinity) -> affine (x, y, inf) arrays."""
-    xs = [p[0] if p is not None else 0 for p in points]
-    ys = [p[1] if p is not None else 0 for p in points]
-    inf = np.asarray([p is None for p in points], dtype=bool)
-    return pack_fq(xs), pack_fq(ys), inf
+    """Oracle G1 points (None = infinity) -> affine (x, y, inf) arrays;
+    every coordinate in one ``pack_fq`` call."""
+    n = len(points)
+    xy = pack_fq([p[0] if p is not None else 0 for p in points]
+                 + [p[1] if p is not None else 0 for p in points])
+    inf = np.asarray([p is None for p in points], dtype=bool).reshape(n)
+    return np.ascontiguousarray(xy[:, :n]), np.ascontiguousarray(xy[:, n:]), inf
 
 
 def pack_g2(points) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Oracle G2 points -> affine (x (16, 2, B), y (16, 2, B), inf)."""
-
-    def coord(i, c):
-        return pack_fq([p[i][c] if p is not None else 0 for p in points])
-
-    inf = np.asarray([p is None for p in points], dtype=bool)
-    return (
-        np.stack([coord(0, 0), coord(0, 1)], 1),
-        np.stack([coord(1, 0), coord(1, 1)], 1),
-        inf,
-    )
+    """Oracle G2 points -> affine (x (16, 2, B), y (16, 2, B), inf); every
+    coordinate in one ``pack_fq`` call."""
+    n = len(points)
+    coords = pack_fq([p[i][c] if p is not None else 0
+                      for i in range(2) for c in range(2) for p in points])
+    coords = coords.reshape(NUM_LIMBS, 2, 2, n)
+    inf = np.asarray([p is None for p in points], dtype=bool).reshape(n)
+    return np.ascontiguousarray(coords[:, 0]), np.ascontiguousarray(coords[:, 1]), inf
 
 
 def pair_major(pack, lanes) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -66,28 +80,31 @@ def unpack_g1(x: torch.Tensor, y: torch.Tensor, inf: torch.Tensor) -> List:
     """Affine device result (x (16, B), y (16, B), inf (B,)) -> oracle
     points (None = infinity), with one device-to-host copy."""
     both = torch.cat([x, y, inf.to(x.dtype).unsqueeze(0)]).cpu().numpy()
-    xs, ys = unpack_fq(both[:16]), unpack_fq(both[16:32])
-    return [None if both[32, k] else (xs[k], ys[k]) for k in range(len(xs))]
+    b = both.shape[-1]
+    xy = unpack_fq(both[:32].reshape(2, NUM_LIMBS, b).transpose(1, 0, 2))
+    return [None if both[32, k] else (xy[k], xy[b + k]) for k in range(b)]
 
 
 def pack_fq12(values) -> np.ndarray:
     """Oracle Fq12 tuples -> (16, 12, B) Montgomery limbs."""
-    comps = [
-        pack_fq([v[h][j][c] for v in values])
-        for h in range(2) for j in range(3) for c in range(2)
-    ]
-    return np.stack(comps, 1)
+    comps = pack_fq([v[h][j][c] for h in range(2) for j in range(3) for c in range(2)
+                     for v in values])
+    return comps.reshape(NUM_LIMBS, 12, len(values))
 
 
 def unpack_fq12(x) -> List:
     """(16, 12, B) limbs -> list of oracle Fq12 tuples."""
     x = np.asarray(x)
-    comps = [unpack_fq(x[:, c]) for c in range(12)]
+    b = x.shape[-1]
+    flat = unpack_fq(x)  # component c of lane k at c * B + k
+
+    def comp(c, k):
+        return flat[c * b + k]
+
     return [
         tuple(
-            tuple((comps[6 * h + 2 * j][k], comps[6 * h + 2 * j + 1][k])
-                  for j in range(3))
+            tuple((comp(6 * h + 2 * j, k), comp(6 * h + 2 * j + 1, k)) for j in range(3))
             for h in range(2)
         )
-        for k in range(x.shape[-1])
+        for k in range(b)
     ]

@@ -25,8 +25,16 @@ import torch
 from ..oracle import bn254 as bn
 from ..ops import pairing_cuda as PC
 from ..ops import tower as T
-from ..parallel.batch import resolve_device
 from .packing import pack_fr_canonical, pack_g1, pack_g2, pair_major, unpack_fq12, unpack_g1
+
+
+def resolve_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' requested but no CUDA device is available")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
 
 
 class TorchBackend:

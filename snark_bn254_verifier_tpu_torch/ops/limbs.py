@@ -39,22 +39,35 @@ def int_to_limbs(value: int) -> np.ndarray:
 
 
 def ints_to_limbs_batch(values: Sequence[int]) -> np.ndarray:
-    """[ints] -> int32[16, B] (limb axis leading)."""
-    if len(values) == 0:
+    """[ints] -> int32[16, B] (limb axis leading).
+
+    Each value becomes 32 little-endian bytes, the batch one ``bytes``
+    viewed as 16-bit limbs: one C-level conversion per value, where
+    ``int_to_limbs`` (kept as the reference) shifts 16 times in Python."""
+    n = len(values)
+    if n == 0:
         return np.zeros((NUM_LIMBS, 0), dtype=np.int32)
-    return np.stack([int_to_limbs(v) for v in values], axis=1)
+    try:
+        buf = b"".join([int(v).to_bytes(TOTAL_BITS // 8, "little") for v in values])
+    except OverflowError:
+        raise ValueError("value out of range for 256-bit limbs") from None
+    return np.frombuffer(buf, "<u2").reshape(n, NUM_LIMBS).T.astype(np.int32)
 
 
 def limbs_batch_to_ints(limbs) -> list:
-    """(16, *batch) limbs -> flat list of ints (batch in C order)."""
-    arr = np.asarray(limbs, dtype=np.int64)
+    """(16, *batch) limbs -> flat list of ints (batch in C order): the
+    limbs as 32 little-endian bytes per value, read by ``int.from_bytes``."""
+    arr = np.asarray(limbs)
     if arr.shape[0] != NUM_LIMBS:
         raise ValueError(f"expected {NUM_LIMBS} limbs, got {arr.shape[0]}")
     flat = arr.reshape(NUM_LIMBS, -1)
-    return [
-        sum(int(flat[i, j]) << (LIMB_BITS * i) for i in range(NUM_LIMBS))
-        for j in range(flat.shape[1])
-    ]
+    if flat.size and (flat.min() < 0 or flat.max() > LIMB_MASK):
+        # no path of the port makes such a limb: a kernel that wrote one
+        # is at fault, and the 16-bit view below would hide it
+        raise ValueError("limb outside 16 bits")
+    buf = np.ascontiguousarray(flat.T, dtype="<u2").tobytes()
+    step = TOTAL_BITS // 8
+    return [int.from_bytes(buf[k:k + step], "little") for k in range(0, len(buf), step)]
 
 
 def int_to_words(value: int, nwords: int = NUM_WORDS) -> list:
@@ -86,9 +99,11 @@ class FieldSpec:
 
     def pack(self, values: Sequence[int], mont: bool = True) -> np.ndarray:
         """Host: list of ints -> (16, B) int32 limbs (Montgomery by default)."""
-        return ints_to_limbs_batch(
-            [self.to_mont_int(v) if mont else v % self.modulus for v in values]
-        )
+        m = self.modulus
+        if mont:
+            r = self.r_mod
+            return ints_to_limbs_batch([v % m * r % m for v in values])
+        return ints_to_limbs_batch([v % m for v in values])
 
     def pack_scalar(self, v: int, mont: bool = True) -> np.ndarray:
         return int_to_limbs(self.to_mont_int(v) if mont else v % self.modulus)
@@ -96,7 +111,10 @@ class FieldSpec:
     def unpack(self, limbs, mont: bool = True) -> list:
         """(16, *batch) limbs -> flat list of field ints."""
         vals = limbs_batch_to_ints(limbs)
-        return [self.from_mont_int(v) for v in vals] if mont else vals
+        if not mont:
+            return vals
+        m, r_inv = self.modulus, self.r_inv
+        return [v * r_inv % m for v in vals]
 
 
 FQ = FieldSpec(bn.P, "fq")

@@ -1,8 +1,11 @@
-"""Batched Groth16 verification on PyTorch: the port's main path.
+"""Batched Groth16 and PlonK verification on PyTorch.
 
-The counterpart of the Groth16 part of
-snark_bn254_verifier_tpu/parallel/batch.py (``Groth16BatchVerifier``,
-batch.py:125-366 there). Per batch:
+The counterpart of snark_bn254_verifier_tpu/parallel/batch.py: its
+``Groth16BatchVerifier`` (batch.py:125-366 there) and its
+``PlonkBatchVerifier`` (batch.py:430-733, with ``_plonk_final_kernel``
+:392, ``_batch_inv_mod_r`` :409 and ``_unpack_affine`` :736).
+
+Groth16, per batch:
 
   1. host: the native C++ parse (the Python parser where proof lengths
      differ), scalar and point packing, the copies to the device, the
@@ -15,16 +18,37 @@ batch.py:125-366 there). Per batch:
      kernel K3, then the final exponentiation, kernel K4;
   5. the Gt compare against e(alpha, beta), ANDed with the validity mask.
 
-A bad proof masks its lane False instead of raising. As in the JAX
-package, B is checked to be on the curve but not to be in the subgroup.
-On a CUDA device every stage goes through its kernel; a CPU device runs
-the plain twins.
+As in the JAX package, B is checked to be on the curve but not to be in
+the subgroup.
+
+PlonK, per batch (two device phases with a host step between: the KZG
+fold challenge binds the device-computed linearisation digest,
+plonk/verify.rs:284 -> kzg.rs:46 of the reference):
+
+  1. host: the per-lane parse and count checks, the Fiat-Shamir
+     challenges, one batch inversion mod r for every lane's
+     denominators, the linearisation scalars and the early check of the
+     linearisation constant;
+  2. phase A, device: the linearisation MSM (nb_BSB22 + 10 points),
+     kernel K2, and one copy of the digests back to the host;
+  3. host: the KZG fold challenge gamma (models/kzg.py::derive_gamma)
+     and the randomisers;
+  4. phase B, device (``_plonk_final``): the combo MSM and the quotient
+     MSM, kernel K2; e(combo, [1]_2) * e(-quotient, [x]_2) as a
+     fixed-only Miller product over the VK's line tables, kernel K3, then
+     kernel K4 and the compare against one, ANDed with the validity mask.
+
+PlonK proofs hold only G1 points, so there is no G2 mask. A bad proof
+masks its lane False instead of raising. On a CUDA device every stage
+goes through its kernel; a CPU device runs the plain twins.
 """
 
 from __future__ import annotations
 
+import secrets
+import struct
 import time
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,8 +57,15 @@ from ..oracle import bn254 as bn
 from ..utils import errors
 from ..utils import native
 from ..utils import serialization as ser
+from ..utils.hash_to_field import WrappedHashToField
 from ..utils.profiling import RunStats
-from ..models.packing import pack_fq12, pack_fr_canonical, pack_g1, pack_g2
+from ..utils.transcript import ALPHA, BETA, GAMMA, ZETA, Transcript
+from ..models import kzg as kzg_mod
+from ..models import plonk as plonk_mod
+from ..models.torch_backend import resolve_device
+from ..models.packing import (pack_fq12, pack_fr_canonical, pack_g1, pack_g2, packer,
+                              unpack_g1)
+from ..ops import field as F
 from ..ops import lines as LN
 from ..ops import pairing_cuda as PC
 from ..ops import tower as T
@@ -42,13 +73,25 @@ from ..ops import tower as T
 R = bn.R
 
 
-def resolve_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' requested but no CUDA device is available")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
+class _Laps:
+    """Synchronised stage laps of one batch: ``lap(stage)`` waits for the
+    device, then books the host ms since the previous lap under
+    ``stage`` in ``ms``."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.ms = {}
+        self.start = self.t = time.perf_counter()
+
+    def __call__(self, stage: str) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.ms[stage] = (now - self.t) * 1e3
+        self.t = now
+
+    def elapsed_s(self) -> float:
+        return time.perf_counter() - self.start
 
 
 class Groth16BatchVerifier:
@@ -60,11 +103,8 @@ class Groth16BatchVerifier:
         self.n_inputs = len(self.vk.k) - 1
         self._tables = None
         self._alpha_beta = None
+        self._k_points = _fixed_points(self.vk.k, self.device)
         self.last_stats: Optional[RunStats] = None
-
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
 
     def _to_dev(self, arr) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(arr), device=self.device)
@@ -91,40 +131,24 @@ class Groth16BatchVerifier:
         b = len(proofs)
         if len(public_inputs) != b:
             raise ValueError("one public-input list per proof")
-        ms = {}
-        t_start = t = time.perf_counter()
-
-        def lap(stage):
-            nonlocal t
-            self._sync()
-            now = time.perf_counter()
-            ms[stage] = (now - t) * 1e3
-            t = now
-
+        lap = _Laps(self.device)
         parsed = self._parse_native(proofs)
         parser = "native" if parsed is not None else "python"
         ar, bs, krs, valid = parsed if parsed is not None else self._parse_python(proofs)
         lap("parse_ms")
 
-        scalars = []
+        # prepared input = 1*k0 + sum in_i * k_{i+1} (k0 folded in with scalar 1)
+        cols = []
         for i, ins in enumerate(public_inputs):
             if len(ins) != self.n_inputs:
                 valid[i] = False
-                scalars.append([0] * self.n_inputs)
+                cols.append(None)
             else:
-                scalars.append([s % R for s in ins])
-        # prepared input = 1*k0 + sum in_i * k_{i+1} (k0 folded in with scalar 1)
-        sc = np.stack(
-            [pack_fr_canonical([1] * b)]
-            + [pack_fr_canonical([row[j] for row in scalars])
-               for j in range(self.n_inputs)]
-        )
-        kx, ky, kinf = pack_g1(self.vk.k)
-        k_points = tuple(np.ascontiguousarray(np.broadcast_to(a[..., None], a.shape + (b,)))
-                         for a in (kx.T, ky.T, kinf))
+                cols.append([1] + [s % R for s in ins])
+        sc = _pack_columns(cols, self.n_inputs + 1, b)
         lap("pack_ms")
 
-        k_points = tuple(self._to_dev(x) for x in k_points)
+        k_points = tuple(v.expand(v.shape[:-1] + (b,)) for v in self._k_points)
         sc = self._to_dev(sc)
         ar, bs, krs = (tuple(self._to_dev(x) for x in pt) for pt in (ar, bs, krs))
         lines, tails = self.line_tables()
@@ -148,10 +172,11 @@ class Groth16BatchVerifier:
             protocol="groth16",
             batch_size=b,
             n_chips=1,
-            elapsed_s=time.perf_counter() - t_start,
+            elapsed_s=lap.elapsed_s(),
             n_valid=int(ok.sum()),
             pairings_per_proof=3,  # e(A,B) e(L,gamma) e(C,-delta) vs e(alpha,beta)
-            extra={"device": str(self.device), "parser": parser, "stage_ms": ms},
+            extra={"device": str(self.device), "parser": parser, "packer": packer(),
+                   "stage_ms": lap.ms},
         )
         return ok
 
@@ -195,3 +220,334 @@ class Groth16BatchVerifier:
                 bss.append(bn.G2_GEN)
                 krss.append(bn.G1_GEN)
         return pack_g1(ars), pack_g2(bss), pack_g1(krss), valid
+
+
+def _fixed_points(points, device) -> tuple:
+    """VK points -> (x (k,16,1), y (k,16,1), inf (k,1)) tensors on the
+    device: packed once per VK, expanded to the batch at each call."""
+    x, y, inf = pack_g1(points)
+    return tuple(torch.as_tensor(np.ascontiguousarray(a), device=device)
+                 for a in (x.T[..., None], y.T[..., None], inf[:, None]))
+
+
+def _batch_inv_mod_r(values: Sequence[int]) -> List[Optional[int]]:
+    """Montgomery-trick inversion mod r of every value with one modular
+    exponentiation for the whole batch; a zero value gives None (its lane
+    is masked False) without spoiling the others."""
+    n = len(values)
+    safe = [v % R or 1 for v in values]
+    prefix = [1] * (n + 1)
+    for i, v in enumerate(safe):
+        prefix[i + 1] = prefix[i] * v % R
+    inv_all = pow(prefix[n], R - 2, R)
+    out: List[Optional[int]] = [None] * n
+    for i in range(n - 1, -1, -1):
+        out[i] = prefix[i] * inv_all % R if values[i] % R else None
+        inv_all = inv_all * safe[i] % R
+    return out
+
+
+def _plonk_final(take, combo_rest, quot, digest, sc, lines, tails, one, valid, lap):
+    """Phase B on the device: the combo MSM (the phase-A ``digest``, then
+    the rows ``combo_rest`` of ``take``) and the quotient MSM (rows
+    ``quot``), kernel K2, with their scalars stacked in ``sc``; the
+    quotient negated; e(combo, [1]_2) * e(-quot, [x]_2) as a fixed-only
+    Miller product over the line tables, kernel K3; kernel K4; the
+    compare with ``one``, ANDed with ``valid``. Returns the (B,) bool
+    tensor on the device; ``lap`` names each stage as it ends."""
+    n_combo = len(combo_rest) + 1
+    combo = tuple(torch.cat([d.unsqueeze(0), t]) for d, t in zip(digest, take(combo_rest)))
+    combo = PC.msm_affine(combo, sc[:n_combo])
+    qx, qy, qinf = PC.msm_affine(take(quot), sc[n_combo:])
+    lap("msm_b_ms")
+    neg_quot = (qx, F.fq_neg(qy), qinf)  # zero stays zero: infinity stays (0, 0)
+    f = PC.miller_mixed(None, None, (combo, neg_quot), lines, tails)
+    lap("miller_ms")
+    gt = PC.final_exp(f)
+    lap("final_exp_ms")
+    return T.fq12_eq(gt, one) & valid
+
+
+class PlonkBatchVerifier:
+    """VK-specialised batched PlonK verifier on one torch device (gnark
+    semantics, BSB22 commitments included; a bad lane is masked False)."""
+
+    def __init__(self, vk_bytes: bytes, device="cuda"):
+        self.device = resolve_device(device)
+        self.vk = ser.load_plonk_verifying_key_from_bytes(vk_bytes)
+        vk = self.vk
+        # the domain generator's powers, the same for every lane: w^i for
+        # the public inputs' Lagrange terms (plonk/verify.rs:116-137) and
+        # w^(nb_public + cci) for BSB22 (plonk/verify.rs:147-152)
+        self._w_pows = [1]
+        for _ in range(max(vk.nb_public_variables, 1) - 1):
+            self._w_pows.append(self._w_pows[-1] * vk.generator % R)
+        self._cci_wpow = [
+            pow(vk.generator, vk.nb_public_variables + cci, R)
+            for cci in vk.commitment_constraint_indexes
+        ]
+        # Rows of the phase-A point upload: each lane's proof points, then
+        # the VK's points, packed once and broadcast to the batch.
+        nb = len(vk.qcp)
+        lane_rows = [f"cmt{j}" for j in range(nb)] + [
+            "l", "r", "o", "z", "h0", "h1", "h2", "hb", "hs"]
+        vk_rows = ["ql", "qr", "qm", "qo", "qk", "s2", "s0", "s1"] + [
+            f"qcp{j}" for j in range(nb)] + ["g1"]
+        self._n_lane_rows = len(lane_rows)
+        self._vk_points = _fixed_points([vk.ql, vk.qr, vk.qm, vk.qo, vk.qk, vk.s[2], vk.s[0],
+                                         vk.s[1], *vk.qcp, vk.kzg.g1], self.device)
+        self._one = self._to_dev(pack_fq12([bn.FQ12_ONE]))
+        row = {name: i for i, name in enumerate(lane_rows + vk_rows)}
+
+        def rows(*names):
+            return torch.tensor([row[n] for n in names], device=self.device)
+
+        cmts = [f"cmt{j}" for j in range(nb)]
+        # plonk/verify.rs:264-279 (lin), kzg.rs:87-126 and :150-178 (combo)
+        self._lin = rows(*cmts, "ql", "qr", "qm", "qo", "qk", "s2", "z", "h0", "h1", "h2")
+        self._combo_rest = rows("l", "r", "o", "s0", "s1", *[f"qcp{j}" for j in range(nb)],
+                                "z", "g1", "hb", "hs")
+        self._quot = rows("hb", "hs")
+        self._tables = None  # KZG ([1]_2, [x]_2) Miller line tables, lazy
+        self.last_stats: Optional[RunStats] = None
+
+    def _to_dev(self, arr) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(arr), device=self.device)
+
+    def _kzg_tables(self):
+        """(lines, tails) of the KZG SRS's [1]_2 and [x]_2, both VK-fixed
+        (kzg.rs:180-186), built once per VK."""
+        if self._tables is None:
+            tabs = (LN.g2_line_table(self.vk.kzg.g2[0]), LN.g2_line_table(self.vk.kzg.g2[1]))
+            self._tables = LN.tables_from_numpy(tabs, self.device)
+        return self._tables
+
+    def verify_batch(self, proofs: Sequence[bytes], public_inputs: Sequence[Sequence[int]],
+                     rng=None) -> np.ndarray:
+        """One bool per proof: True where the proof verifies. ``rng`` draws
+        the KZG randomisers (a callable returning a nonzero Fr int), by
+        default from ``secrets``."""
+        vk = self.vk
+        b = len(proofs)
+        if len(public_inputs) != b:
+            raise ValueError("one public-input list per proof")
+        lap = _Laps(self.device)
+        valid = np.ones(b, dtype=bool)
+        parsed: List[Optional[ser.PlonkProof]] = []
+        for i, pb in enumerate(proofs):
+            try:
+                proof = ser.load_plonk_proof_from_bytes(pb)
+                if len(proof.bsb22_commitments) != len(vk.qcp):
+                    raise errors.Bsb22CommitmentMismatchError()
+                if len(public_inputs[i]) != vk.nb_public_variables:
+                    raise errors.InvalidWitnessError()
+                # one claimed value per digest of the KZG fold, as
+                # kzg.fold_proof demands on the single-proof path
+                if len(proof.batched_proof.claimed_values) != 6 + len(vk.qcp):
+                    raise errors.InvalidNumberOfDigestsError(6 + len(vk.qcp))
+                parsed.append(proof)
+            except (errors.VerifierError, IndexError, ValueError, struct.error):
+                valid[i] = False
+                parsed.append(None)
+        lap("parse_ms")
+
+        # pass 1: the challenges and every denominator of the lane; one
+        # inversion for the whole batch; pass 2: the rest, products only
+        chs: List[Optional[dict]] = []
+        denoms: List[int] = []
+        for i, proof in enumerate(parsed):
+            ch = None
+            if proof is not None:
+                try:
+                    ch = self._lane_challenges(proof, public_inputs[i])
+                    denoms.extend(ch["denoms"])
+                except errors.VerifierError:
+                    valid[i] = False
+            chs.append(ch)
+        invs = _batch_inv_mod_r(denoms)
+        lanes: List[Optional[dict]] = []
+        pos = 0
+        for i, ch in enumerate(chs):
+            lane = None
+            if ch is not None:
+                k = len(ch["denoms"])
+                lane_invs = invs[pos:pos + k]
+                pos += k
+                try:
+                    if any(v is None for v in lane_invs):
+                        raise errors.InverseNotFoundError()  # zeta on the domain
+                    lane = self._lane_finish(parsed[i], public_inputs[i], ch, lane_invs)
+                except errors.VerifierError:
+                    valid[i] = False
+            lanes.append(lane)
+        lap("host_a_ms")
+
+        if not any(lane is not None for lane in lanes):  # no lane reaches the card
+            self.last_stats = self._stats(b, 0, lap)
+            return np.zeros(b, dtype=bool)
+
+        # phase A: every lane's proof points (each VK point once), the
+        # linearisation scalars; dead lanes carry G1_GEN and scalar 0
+        m = self._n_lane_rows
+        lane_pts = [[bn.G1_GEN] * m if proof is None else
+                    [*proof.bsb22_commitments, *proof.lro, proof.z, *proof.h,
+                     proof.batched_proof.h, proof.z_shifted_opening.h] for proof in parsed]
+        x, y, inf = pack_g1([lp[j] for j in range(m) for lp in lane_pts])
+        pts = (x.reshape(16, m, b).swapaxes(0, 1), y.reshape(16, m, b).swapaxes(0, 1),
+               inf.reshape(m, b))
+        lin_sc = _pack_columns([lane and lane["lin_scalars"] for lane in lanes],
+                               len(self._lin), b)
+        lap("pack_a_ms")
+
+        pts = tuple(torch.cat([self._to_dev(a), v.expand(v.shape[:-1] + (b,))])
+                    for a, v in zip(pts, self._vk_points))
+        lin_sc = self._to_dev(lin_sc)
+        lines, tails = self._kzg_tables()
+        lap("upload_a_ms")
+
+        def take(idx):
+            return tuple(t.index_select(0, idx) for t in pts)
+
+        digest = PC.msm_affine(take(self._lin), lin_sc)
+        lap("msm_a_ms")
+        digests_host = unpack_g1(*digest)
+        lap("digest_copy_ms")
+
+        # host: the KZG fold challenge binds the digest; the randomisers
+        rand_fr = rng if rng is not None else (lambda: secrets.randbelow(R - 1) + 1)
+        cols = [None if lane is None else
+                self._lane_fold(parsed[i], lane["zeta"], digests_host[i], rand_fr)
+                for i, lane in enumerate(lanes)]
+        lap("host_b_ms")
+        sc = _pack_columns(cols, len(self._combo_rest) + 1 + len(self._quot), b)
+        lap("pack_b_ms")
+        sc = self._to_dev(sc)
+        tvalid = self._to_dev(valid)
+        lap("upload_b_ms")
+
+        ok = _plonk_final(take, self._combo_rest, self._quot, digest, sc, lines, tails,
+                          self._one, tvalid, lap).cpu().numpy()
+        lap("compare_ms")
+        self.last_stats = self._stats(b, int(ok.sum()), lap)
+        return ok
+
+    def _stats(self, b: int, n_valid: int, lap: "_Laps") -> RunStats:
+        host = ("parse_ms", "host_a_ms", "pack_a_ms", "host_b_ms", "pack_b_ms")
+        ms = lap.ms
+        return RunStats(
+            protocol="plonk",
+            batch_size=b,
+            n_chips=1,
+            elapsed_s=lap.elapsed_s(),
+            n_valid=n_valid,
+            pairings_per_proof=2,  # the KZG two-pair batch check (kzg.rs:180-186)
+            extra={"device": str(self.device), "packer": packer(), "stage_ms": ms,
+                   "host_s": sum(ms.get(k, 0.0) for k in host) / 1e3},
+        )
+
+    # -- host scalar work (reference plonk/verify.rs:62-279 semantics) ------
+
+    def _lane_challenges(self, proof: ser.PlonkProof, inputs: Sequence[int]) -> dict:
+        """Pass 1: the Fiat-Shamir challenges and every denominator this
+        lane needs inverted (inverted across lanes by the caller)."""
+        vk = self.vk
+        fs = Transcript([GAMMA, BETA, ALPHA, ZETA])
+        plonk_mod.bind_public_data(fs, GAMMA, vk, inputs)
+        gamma = plonk_mod.derive_randomness(fs, GAMMA, list(proof.lro))
+        beta = plonk_mod.derive_randomness(fs, BETA)
+        alpha = plonk_mod.derive_randomness(
+            fs, ALPHA, list(proof.bsb22_commitments) + [proof.z])
+        zeta = plonk_mod.derive_randomness(fs, ZETA, list(proof.h))
+        zeta_n = pow(zeta, vk.size, R)  # vk.size is a power of two
+        denoms = [(zeta - 1) % R]
+        denoms.extend((zeta - w) % R for w in self._w_pows[:len(inputs)])
+        denoms.extend((zeta - w) % R for w in self._cci_wpow)
+        return {"gamma": gamma, "beta": beta, "alpha": alpha, "zeta": zeta,
+                "zeta_n": zeta_n, "denoms": denoms}
+
+    def _lane_finish(self, proof: ser.PlonkProof, inputs: Sequence[int], ch: dict,
+                     invs: Sequence[int]) -> dict:
+        """Pass 2: the remaining Fr algebra, products only; raises
+        OpeningPolyMismatchError where the linearisation constant differs."""
+        vk = self.vk
+        gamma, beta, alpha, zeta = ch["gamma"], ch["beta"], ch["alpha"], ch["zeta"]
+        zeta_n = ch["zeta_n"]
+        zh_zeta = (zeta_n - 1) % R
+        lagrange_one = invs[0] * zh_zeta % R * vk.size_inv % R
+
+        pi = 0
+        for j, w in enumerate(inputs):
+            li = zh_zeta * invs[1 + j] % R * vk.size_inv % R * self._w_pows[j] % R
+            pi = (pi + li * (w % R)) % R
+        htf = WrappedHashToField(plonk_mod.BSB22_DST)
+        base = 1 + len(inputs)
+        for i, w_pow_i in enumerate(self._cci_wpow):
+            htf.write(ser.g1_to_bytes(proof.bsb22_commitments[i]))
+            hashed = int.from_bytes(htf.sum(), "big") % R
+            htf.reset()
+            lagrange = zh_zeta * w_pow_i % R * invs[base + i] % R * vk.size_inv % R
+            pi = (pi + lagrange * hashed) % R
+
+        cv = proof.batched_proof.claimed_values
+        l, r_, o, s1, s2 = cv[1], cv[2], cv[3], cv[4], cv[5]
+        zu = proof.z_shifted_opening.claimed_value
+        alpha_sq_l1 = lagrange_one * alpha % R * alpha % R
+        const_lin = (beta * s1 + gamma + l) % R
+        const_lin = const_lin * ((beta * s2 + gamma + r_) % R) % R
+        const_lin = const_lin * ((o + gamma) % R) % R * alpha % R * zu % R
+        const_lin = (const_lin - alpha_sq_l1 + pi) % R
+        const_lin = (-const_lin) % R
+        if const_lin != cv[0] % R:
+            raise errors.OpeningPolyMismatchError()
+
+        _s1 = (beta * s1 + l + gamma) % R * ((beta * s2 + r_ + gamma) % R) % R
+        _s1 = _s1 * beta % R * alpha % R * zu % R
+        u = vk.coset_shift
+        _s2 = (beta * zeta + gamma + l) % R
+        _s2 = _s2 * ((beta * u % R * zeta + gamma + r_) % R) % R
+        _s2 = _s2 * ((beta * u % R * u % R * zeta + gamma + o) % R) % R
+        _s2 = (-(_s2 * alpha)) % R
+        coeff_z = (alpha_sq_l1 + _s2) % R
+        rl = l * r_ % R
+        zeta_n2 = zeta_n * zeta % R * zeta % R
+        zn2_zh = (-(zeta_n2 * zh_zeta)) % R
+        zn2sq_zh = (-(zeta_n2 * zeta_n2 % R * zh_zeta)) % R
+        zh_neg = (-zh_zeta) % R
+
+        lin_points = list(proof.bsb22_commitments) + [
+            vk.ql, vk.qr, vk.qm, vk.qo, vk.qk, vk.s[2],
+            proof.z, proof.h[0], proof.h[1], proof.h[2],
+        ]
+        qc = [v % R for v in cv[6:]]
+        lin_scalars = qc + [l, r_, rl, o, 1, _s1, coeff_z, zh_neg, zn2_zh, zn2sq_zh]
+        return {"zeta": zeta, "lin_points": lin_points, "lin_scalars": lin_scalars}
+
+    def _lane_fold(self, proof: ser.PlonkProof, zeta: int, lin_digest, rand_fr) -> list:
+        """After phase A: the KZG fold challenge over this lane's digests
+        (models/kzg.py::derive_gamma, bound to the device digest) and one
+        randomiser; returns the combo MSM's scalars, then the quotient
+        MSM's (kzg.rs:87-186 folded into two MSMs)."""
+        vk = self.vk
+        digests = [lin_digest, *proof.lro, vk.s[0], vk.s[1], *vk.qcp]
+        cv = proof.batched_proof.claimed_values
+        zu = proof.z_shifted_opening.claimed_value
+        gamma_fold = kzg_mod.derive_gamma(zeta, digests, cv, ser.fr_to_bytes_be(zu))
+        gpow = [1]
+        for _ in range(len(digests) - 1):
+            gpow.append(gpow[-1] * gamma_fold % R)
+        folded_eval = sum(v * c for v, c in zip(cv, gpow)) % R
+        r_rand = rand_fr()
+        shifted = zeta * vk.generator % R
+        fe_total = (folded_eval + r_rand * zu) % R
+        # combo = sum gpow_i digest_i + r z - fe_total [1]_1 + zeta H_b + r shifted H_s
+        return gpow + [r_rand, (-fe_total) % R, zeta, r_rand * shifted % R, 1, r_rand]
+
+
+def _pack_columns(cols, n: int, b: int) -> np.ndarray:
+    """Per-lane lists of n canonical Fr scalars (None: a dead lane, all
+    zero) -> (n, 16, b) limbs, in one packer call."""
+    flat = [0] * (n * b)
+    for lane, col in enumerate(cols):
+        if col is not None:
+            flat[lane::b] = col
+    return pack_fr_canonical(flat).reshape(16, n, b).swapaxes(0, 1)

@@ -104,12 +104,14 @@ class _Stop(Exception):
 
 
 @pytest.mark.parametrize("entry", ["Groth16Verifier.verify", "PlonkVerifier.verify",
-                                   "Groth16BatchVerifier", "TorchBackend"])
+                                   "Groth16BatchVerifier", "PlonkBatchVerifier",
+                                   "TorchBackend"])
 def test_entry_points_default_to_the_card(g16, plonk, entry, monkeypatch):
     """Without a device argument every entry point asks for "cuda": the CPU
     runs only when the caller names it. The device resolver is replaced by
     a recorder that stops the call, so nothing runs on either device."""
-    from snark_bn254_verifier_tpu_torch import Groth16BatchVerifier, TorchBackend
+    from snark_bn254_verifier_tpu_torch import (Groth16BatchVerifier, PlonkBatchVerifier,
+                                                TorchBackend)
     from snark_bn254_verifier_tpu_torch.models import torch_backend
     from snark_bn254_verifier_tpu_torch.parallel import batch
 
@@ -127,6 +129,7 @@ def test_entry_points_default_to_the_card(g16, plonk, entry, monkeypatch):
         "PlonkVerifier.verify": lambda: PlonkVerifier.verify(plonk.proof, plonk.vk,
                                                              plonk.public_inputs),
         "Groth16BatchVerifier": lambda: Groth16BatchVerifier(g16.vk),
+        "PlonkBatchVerifier": lambda: PlonkBatchVerifier(plonk.vk),
         "TorchBackend": lambda: TorchBackend(),
     }[entry]
     with pytest.raises(_Stop):

@@ -12,9 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from snark_bn254_verifier_tpu_torch import Groth16BatchVerifier, Groth16Verifier
+from snark_bn254_verifier_tpu_torch import Groth16BatchVerifier, Groth16Verifier, PlonkBatchVerifier
 from snark_bn254_verifier_tpu_torch.fixtures.g2_lanes import g2_mask_lanes
 from snark_bn254_verifier_tpu_torch.fixtures.gen import gen_groth16_vector
+from snark_bn254_verifier_tpu_torch.fixtures.plonk_lanes import KINDS, plonk_batch_lanes
 from snark_bn254_verifier_tpu_torch.models.packing import pack_g1, pack_g2, pair_major
 from snark_bn254_verifier_tpu_torch.ops import curve as C
 from snark_bn254_verifier_tpu_torch.ops import field as F
@@ -183,6 +184,23 @@ def test_slice_on_cuda(cuda):
     launches = PC.launch_counts()
     assert all(launches[k] > 0 for k in ("msm_affine", "miller_mixed", "final_exp"))
     assert launches["g2_on_curve"] == 1 and launches["mont_mul"] == 0
+
+
+def test_plonk_batch_on_cuda(cuda):
+    """The PlonK batch at B lanes, one bad lane of each kind spread over
+    it: the exact bools, three K2 launches, one fixed-only K3, one K4 and
+    nothing else, and the first 8 lanes equal to the CPU run."""
+    bad = {3 + 4 * k: kind for k, kind in enumerate(KINDS)}
+    vec, proofs, inputs, expected = plonk_batch_lanes(B, bad)
+    ver = PlonkBatchVerifier(vec.vk, device="cuda")
+    rng = random.Random(66)
+    PC.reset_launch_counts()
+    ok = ver.verify_batch(proofs, inputs, rng=lambda: rng.randrange(1, bn.R))
+    assert ok.tolist() == expected
+    assert PC.launch_counts() == {"mont_mul": 0, "g2_on_curve": 0, "msm_affine": 3,
+                                  "miller_mixed": 1, "final_exp": 1, "miller_product": 0}
+    cpu = PlonkBatchVerifier(vec.vk, device="cpu").verify_batch(proofs[:8], inputs[:8])
+    assert cpu.tolist() == ok[:8].tolist()
 
 
 def test_miller_product_kernel_equals_plain(cuda):

@@ -47,3 +47,13 @@ def test_every_kernel_has_a_cuda_entry_point():
     for name in PC.KERNEL_ENTRY_POINTS:
         entry = f"int bn_{name}(" in src or f"int BN_NAME(bn_{name})(" in src
         assert entry and f"__global__ void {name}_kernel(" in src, name
+
+
+def test_chip_smoke_paths_launch_every_kernel():
+    """The kernels chip_smoke requires of its paths (the Groth16 slice, the
+    PlonK batch, the single proofs) cover the registry but the kernels no
+    path launches; the PlonK batch launches no G2 kernel."""
+    smoke = _load_chip_smoke()
+    paths = set(smoke.SLICE_KERNELS) | set(smoke.PLONK_BATCH_KERNELS) | set(smoke.SINGLE_KERNELS)
+    assert paths == set(PC.KERNEL_ENTRY_POINTS) - set(smoke.UNLAUNCHED)
+    assert set(smoke.PLONK_BATCH_KERNELS) == {"msm_affine", "miller_mixed", "final_exp"}
