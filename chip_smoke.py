@@ -17,8 +17,11 @@ It builds the port's CUDA kernels from csrc/, then
      the inputs of one PlonK batch of 1024, recorded as it ran; then K2
      (11, 7, 2 and 1 points, every MSM of a PlonK single), K4 and K5 (3
      and 2 pairs) at batch one, the single-proof path's shapes, exact
-     against their twins and timed on those inputs; and computes each
-     kernel's bound from the work its twin counts on one lane;
+     against their twins and timed on those inputs; K6 (the bucket MSM)
+     exact against its twin, K2 and the oracle at 256 points, against the
+     closed form at 2^16 points, timed there, and K2 against K6 around
+     msm_best's switch; and computes each kernel's bound from the work its
+     twin counts;
   2. drives the batched Groth16 path, ``Groth16BatchVerifier(vk,
      device="cuda")`` on a batch of 1024 proofs of the bench vector with
      bad lanes at fixed positions, checks the exact bool vector and that
@@ -31,18 +34,25 @@ It builds the port's CUDA kernels from csrc/, then
      bool vector, that each batch launches K2 three times, K3 once with no
      variable pair, K4 once and nothing else, and the first 8 lanes
      against the CPU run, and times warm batches with their stages;
+     each batch path then runs PIPELINED batches through
+     ``verify_batch_async``, at most two in flight, with the exact bools
+     and the same launches on every batch, and prints the rate beside the
+     synchronous one;
   4. drives the single-proof path, ``Groth16Verifier.verify`` and
      ``PlonkVerifier.verify`` with ``device="cuda"``, on a good proof, a
      wrong input value, a wrong input count, a corrupted proof byte and,
      for PlonK, a doubled opening proof that fails in the pairing check;
      each result or exception must equal the oracle backend's, and its
      kernels (K2, K4, K5) must have been launched; then times warm calls
-     and splits one call into its primitives.
+     and splits one call into its primitives;
+  5. drives the large MSM: ``TorchBackend.msm`` at 80 points and
+     ``sharded_msm`` on 2^16 points over a world-size-1 NCCL group, both
+     through K6 and exact against the closed form, and times the latter.
 
 Each path's launch counts are set to 0 just before it is driven and read
 just after; together the paths must launch every kernel but K1's
 elementwise form, mont_mul, which no path launches (it is still checked
-and timed). It imports
+and timed); the large MSM must launch K6. It imports
 neither JAX nor the JAX package. It prints the card's name and power
 limit, one JSON line with the kernels' results (time, bound, share of the
 bound, launches per path, registers, stack, shared bytes, team shape),
@@ -68,7 +78,7 @@ CSRC = "snark_bn254_verifier_tpu_torch/csrc/"
 SOURCE = {"mont_mul": CSRC + "fp.cuh", "g2_on_curve": CSRC + "curve.cuh",
           "msm_affine": CSRC + "msm.cuh",
           "miller_mixed": CSRC + "team.cuh", "final_exp": CSRC + "team.cuh",
-          "miller_product": CSRC + "team.cuh"}
+          "miller_product": CSRC + "team.cuh", "msm_pippenger": CSRC + "pippenger.cuh"}
 # run on a team of threads per lane
 TEAM_KERNELS = ("msm_affine", "miller_mixed", "final_exp", "miller_product")
 # The card's peaks for the bounds (NVIDIA's H100 SXM data sheet, and the
@@ -88,6 +98,8 @@ REPLACES = {
     "miller_mixed": [PALLAS + "pairing_pallas.py:99"],
     "final_exp": [PALLAS + "pairing_pallas.py:179", PALLAS + "pairing_pallas.py:191"],
     "miller_product": [PALLAS + "pairing_pallas.py:84", PALLAS + "pairing_pallas.py:171"],
+    # no Pallas original: the JAX package's bucket MSM is XLA
+    "msm_pippenger": ["snark_bn254_verifier_tpu/ops/msm.py:59"],
 }
 
 
@@ -199,12 +211,13 @@ def nbytes(*tensors) -> int:
 
 def run_recorded(fn):
     """(fn(), [(kernel, args), ...]): fn run with the arguments of every
-    kernel wrapper that parallel/batch.py calls recorded. The batch module
-    is handed recording stand-ins for its ``PC`` (ops/pairing_cuda.py),
-    restored after; the wrappers and their launch counts stay the real
-    ones."""
+    kernel wrapper that parallel/batch.py calls, itself or through
+    ops/msm.py::msm_best, recorded. Both modules are handed recording
+    stand-ins for their ``PC`` (ops/pairing_cuda.py), restored after; the
+    wrappers and their launch counts stay the real ones."""
     import types
 
+    from snark_bn254_verifier_tpu_torch.ops import msm
     from snark_bn254_verifier_tpu_torch.parallel import batch
 
     real = batch.PC
@@ -216,12 +229,13 @@ def run_recorded(fn):
             return getattr(real, name)(*args)
         return rec
 
-    batch.PC = types.SimpleNamespace(
+    stand_in = types.SimpleNamespace(
         **{name: recorder(name) for name in real.KERNEL_ENTRY_POINTS})
+    batch.PC = msm.PC = stand_in
     try:
         out = fn()
     finally:
-        batch.PC = real
+        batch.PC = msm.PC = real
     return out, calls
 
 
@@ -761,6 +775,133 @@ def phase_miller_product(ctx):
     return out
 
 
+MSM_N = 1 << 16  # the JAX package's large-MSM bench size (bench.py:250-300)
+MSM_SEED = 11     # and its seed
+
+
+@functools.lru_cache(maxsize=None)
+def trapdoor_inputs(n: int):
+    """The large MSM's data (fixtures/msm_lanes.py, the bench's seed) packed
+    for the kernels at batch one, on the card: (points, scalars, expected)."""
+    import torch
+
+    from snark_bn254_verifier_tpu_torch.fixtures.msm_lanes import trapdoor_msm
+    from snark_bn254_verifier_tpu_torch.models.packing import pack_msm
+
+    pts, scs, expected = trapdoor_msm(n, MSM_SEED)
+    packed, sc = pack_msm(pts, scs)
+    points = tuple(torch.as_tensor(a, device="cuda") for a in packed)
+    return points, torch.as_tensor(sc, device="cuda"), expected
+
+
+def pippenger_work(points, scalars, c) -> int:
+    """Montgomery products the bucket MSM needs on these inputs, summed over
+    lanes: a mixed add per finite point of nonzero digit and window, the
+    running sums (two full adds a bucket and window), Horner (c doublings
+    and an add a window) and the affine conversion; each operation's
+    products counted on its plain formula (count_fp_muls)."""
+    import torch
+
+    from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
+    from snark_bn254_verifier_tpu_torch.models.packing import pack_g1
+    from snark_bn254_verifier_tpu_torch.ops import curve as C
+    from snark_bn254_verifier_tpu_torch.ops import msm as M
+
+    g1 = C.G1_OPS
+    x, y, inf = (torch.as_tensor(a) for a in pack_g1([bn.G1_GEN]))
+    x, y = x.to(torch.int64), y.to(torch.int64)
+    q = C.jacobian_double(g1, C.to_jacobian(g1, (x, y, inf)))  # 2G and 4G, Z != 1
+    r = C.jacobian_double(g1, q)
+    madd = count_fp_muls(lambda: C.jacobian_add_mixed(g1, q, (x, y, inf)))
+    add = count_fp_muls(lambda: C.jacobian_add(g1, q, r))
+    dbl = count_fp_muls(lambda: C.jacobian_double(g1, q))
+    affine = count_fp_muls(lambda: C.to_affine(g1, q))
+    digits, _, _ = M.bucket_order(points[2], scalars, c)
+    nonzero = int((digits != 0).sum().item())
+    w, b = M.windows(c), scalars.shape[-1]
+    per_lane = w * 2 * ((1 << c) - 1) * add + (w - 1) * (c * dbl + add) + affine
+    return nonzero * madd + b * per_lane
+
+
+def phase_msm_pippenger(ctx):
+    """K6: exact against its plain twin, K2 and the oracle at N = 256 over
+    four lanes with edge lanes (both timed there), and against the closed
+    form at N = 2^16, timed there with its bound; then K2 against K6
+    around msm_best's switch."""
+    import numpy as np
+    import torch
+
+    from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
+    from snark_bn254_verifier_tpu_torch.models.packing import pack_g1, unpack_g1
+    from snark_bn254_verifier_tpu_torch.ops import msm as M
+    from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
+    from snark_bn254_verifier_tpu_torch.ops.limbs import limbs_batch_to_ints
+
+    def on_card(pts, sc):
+        packed = [pack_g1(p) for p in pts]
+        return (tuple(torch.as_tensor(np.stack([p[i] for p in packed]), device=ctx.dev)
+                      for i in range(3)), torch.as_tensor(sc, device=ctx.dev))
+
+    # N = 256 over 4 lanes: lane 0 every scalar zero (infinity), lane 1 one
+    # point throughout (each bucket adds P + P), lanes 2-3 with points at
+    # infinity and zero scalars among them
+    n, b = 256, 4
+    pts, sc = msm_inputs(ctx, n, p_inf=0.1, p_zero=0.1, b=b)
+    sc[:, :, 0] = 0
+    for j in range(n):
+        pts[j][1] = ctx.g1_pool[0]
+    args = on_card(pts, sc)
+    got = PC.msm_pippenger(*args)
+    want, plain_ms = time_plain(lambda: M.pippenger_plain(*args))
+    err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]),
+              int((got[2] != want[2]).sum().item()))
+    require(err == 0, "msm_pippenger (N=256) differs from its plain twin")
+    require(all(torch.equal(g, k) for g, k in zip(got, PC.msm_affine(*args))),
+            "msm_pippenger (N=256) != K2")
+    got_pts = unpack_g1(*got)
+    for lane in range(b):
+        keep = [j for j in range(n) if pts[j][lane] is not None]
+        want_pt = bn.g1_msm([pts[j][lane] for j in keep],
+                            [limbs_batch_to_ints(sc[j][:, lane:lane + 1])[0] for j in keep])
+        require(got_pts[lane] == want_pt, f"msm_pippenger (N=256) lane {lane} != oracle")
+    require(got_pts[0] is None, "msm_pippenger: all-zero scalars must give infinity")
+    ms_256 = time_kernel(lambda: PC.msm_pippenger(*args), 3)
+    print(f"K6 msm_pippenger N={n} B={b}: exact vs plain, K2 and oracle; kernel "
+          f"{ms_256:.3f} ms, plain {plain_ms:.1f} ms")
+
+    # N = 2^16 at batch one (the bench's trapdoor points): the closed form,
+    # then timed (the wrapper: digit sort and bounds, then both launches)
+    points, scal, expected = trapdoor_inputs(MSM_N)
+    PC.reset_launch_counts()
+    got = PC.msm_pippenger(points, scal)
+    require(PC.launch_counts()["msm_pippenger"] == 1, "msm_pippenger did not launch")
+    require(unpack_g1(*got)[0] == expected, "msm_pippenger (N=2^16) != closed form")
+    ms = time_kernel(lambda: PC.msm_pippenger(points, scal), 5)
+    glue_ms = time_kernel(lambda: M.bucket_order(points[2], scal, 8), 5)
+    bnd = bound(pippenger_work(points, scal, 8), nbytes(*points, scal, *got))
+    print(f"K6 msm_pippenger N=2^16 B=1 c=8: exact vs closed form; {ms:.3f} ms "
+          f"(digit sort and bounds {glue_ms:.3f} ms), bound {bnd['bound_ms']:.4f} ms "
+          f"({bnd['bound_by']})")
+    out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "glue_ms": glue_ms,
+           "ms_n256_b4": ms_256, "shape": [MSM_N, 16, 1], "plain_shape": [n, 16, b], **bnd}
+
+    # K2 against K6 around the switch: n = 64, 256, 4096 at B = 1 (the
+    # trapdoor points), n = 64 at the batch; equal results, both timed
+    for n_pts, lanes in ((64, 1), (256, 1), (4096, 1), (64, ctx.batch)):
+        if lanes == 1:
+            args = (tuple(t[:n_pts] for t in points), scal[:n_pts])
+        else:
+            args = on_card(*msm_inputs(ctx, n_pts, b=lanes))
+        require(all(torch.equal(u, v) for u, v in zip(PC.msm_pippenger(*args),
+                                                      PC.msm_affine(*args))),
+                f"K6 != K2 at n={n_pts} B={lanes}")
+        k6_ms = time_kernel(lambda: PC.msm_pippenger(*args), 3)
+        k2_ms = time_kernel(lambda: PC.msm_affine(*args), 3)
+        out[f"k6_ms_n{n_pts}_b{lanes}"], out[f"k2_ms_n{n_pts}_b{lanes}"] = k6_ms, k2_ms
+        print(f"K2 vs K6 n={n_pts} B={lanes}: equal; K6 {k6_ms:.3f} ms, K2 {k2_ms:.3f} ms")
+    return out
+
+
 # One on-card phase per entry of KERNEL_ENTRY_POINTS (checked by
 # tests/test_torch_kernel_registry.py).
 KERNEL_PHASES = {
@@ -770,54 +911,42 @@ KERNEL_PHASES = {
     "miller_mixed": phase_miller_mixed,
     "final_exp": phase_final_exp,
     "miller_product": phase_miller_product,
+    "msm_pippenger": phase_msm_pippenger,
 }
 # The kernels each path launches; together they cover KERNEL_ENTRY_POINTS
 # but UNLAUNCHED, K1's elementwise form (its fused form runs on the slice).
 SLICE_KERNELS = ("g2_on_curve", "msm_affine", "miller_mixed", "final_exp")
 PLONK_BATCH_KERNELS = ("msm_affine", "miller_mixed", "final_exp")
 SINGLE_KERNELS = ("msm_affine", "final_exp", "miller_product")
+LARGE_MSM_KERNELS = ("msm_pippenger",)
 UNLAUNCHED = ("mont_mul",)
+PIPELINED = 8  # batches of each pipelined loop, at most two in flight (bench.py:105-116)
 
 
-def slice_inputs(batch: int):
-    """The bench vector at ``batch`` proofs with bad lanes at fixed
-    positions; all proofs keep one length, so the native parser runs."""
-    from snark_bn254_verifier_tpu_torch.fixtures.gen import gen_groth16_vector
-
-    vec = gen_groth16_vector(0, num_inputs=2)
-    other = gen_groth16_vector(1, num_inputs=2)
-    proofs = [vec.proof] * batch
-    inputs = [list(vec.public_inputs) for _ in range(batch)]
-    expected = [True] * batch
-    bad_a = bytearray(vec.proof)
-    bad_a[5] ^= 0xFF                  # corrupt A.x
-    off_b = bytearray(vec.proof)
-    off_b[64 + 127] ^= 1              # B.y changed: B off the curve
-    bad = {
-        3: ("proof", bytes(bad_a)),
-        5: ("proof", bytes(off_b)),
-        7: ("inputs", [1, 2]),        # wrong input values
-        11: ("inputs", [1]),          # wrong input count
-        13: ("proof", other.proof),   # a proof of another statement
-    }
-    for lane, (kind, val) in bad.items():
-        if lane >= batch:
-            continue
-        if kind == "proof":
-            proofs[lane] = val
-        else:
-            inputs[lane] = val
-        expected[lane] = False
-    return vec, proofs, inputs, expected
+def pipelined(dispatch, expected, batches: int, what: str) -> float:
+    """``batches`` calls of ``dispatch`` (a verify_batch_async), at most two
+    in flight: the third is dispatched before the first is read, as the
+    JAX package's bench does. Every batch's bools must equal ``expected``.
+    Returns the seconds of the loop."""
+    pending = []
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        pending.append(dispatch())
+        if len(pending) > 2:
+            require(pending.pop(0).cpu().tolist() == expected, f"{what}: a pipelined batch's bools")
+    for ok in pending:
+        require(ok.cpu().tolist() == expected, f"{what}: a pipelined batch's bools")
+    return time.perf_counter() - t0
 
 
 def run_slice(batch: int, iters: int):
     import numpy as np
 
     from snark_bn254_verifier_tpu_torch import Groth16BatchVerifier
+    from snark_bn254_verifier_tpu_torch.fixtures.groth16_lanes import groth16_batch_lanes
     from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
 
-    vec, proofs, inputs, expected = slice_inputs(batch)
+    vec, proofs, inputs, expected = groth16_batch_lanes(batch)
     ver = Groth16BatchVerifier(vec.vk, device="cuda")
     ver.line_tables()  # once-per-VK host work, outside the counted run
     ver.alpha_beta()
@@ -838,6 +967,9 @@ def run_slice(batch: int, iters: int):
     cpu = Groth16BatchVerifier(vec.vk, device="cpu").verify_batch(proofs[:small], inputs[:small])
     require(cpu.tolist() == ok[:small].tolist(), "CUDA and CPU runs disagree on the first 16 lanes")
     print(f"slice: first {small} lanes equal to the CPU run")
+    # set-up outside the timed runs: the second stream of the verifier's
+    # ring and its pinned staging buffer (parallel/batch.py::_Ring)
+    require(ver.verify_batch(proofs, inputs).tolist() == expected, "slice bool vector changed")
 
     times, stages = [], []
     for _ in range(iters):
@@ -852,7 +984,19 @@ def run_slice(batch: int, iters: int):
     print(f"slice warm: {iters} runs, batch s {[round(t, 4) for t in times]}, "
           f"{batch / best:.1f} proofs/s (best), {batch * iters / sum(times):.1f} proofs/s (mean)")
     print("slice stage ms (mean): " + json.dumps({k: round(v, 3) for k, v in mean_stage.items()}))
-    return launches
+
+    # pipelined: verify_batch_async, two batches in flight on their streams
+    PC.reset_launch_counts()
+    secs = pipelined(lambda: ver.verify_batch_async(proofs, inputs), expected, PIPELINED,
+                     "slice")
+    piped = PC.launch_counts()
+    want = {name: PIPELINED if name in SLICE_KERNELS else 0 for name in PC.KERNEL_ENTRY_POINTS}
+    require(piped == want, f"pipelined slice launches {piped}, expected {want}")
+    print(f"slice pipelined: {PIPELINED} batches through verify_batch_async, bools exact, "
+          f"one launch each of {', '.join(SLICE_KERNELS)} a batch; "
+          f"{batch * PIPELINED / secs:.1f} proofs/s (synchronous: {batch / best:.1f} best, "
+          f"{batch * iters / sum(times):.1f} mean)")
+    return launches, piped
 
 
 def run_plonk_batch(batch: int, iters: int):
@@ -888,6 +1032,9 @@ def run_plonk_batch(batch: int, iters: int):
     require(cpu.tolist() == ok[:small].tolist(),
             f"PlonK batch: CUDA and CPU runs disagree on the first {small} lanes")
     print(f"PlonK batch: first {small} lanes equal to the CPU run")
+    # set-up outside the timed runs: the ring's second stream and buffer
+    require(ver.verify_batch(proofs, inputs).tolist() == expected,
+            "PlonK batch bool vector changed between runs")
 
     times, stages = [], []
     for _ in range(iters):
@@ -909,6 +1056,75 @@ def run_plonk_batch(batch: int, iters: int):
           f"{batch / best:.1f} proofs/s (best), {batch * iters / sum(times):.1f} proofs/s (mean)")
     print("PlonK batch stage ms (mean): "
           + json.dumps({k: round(v, 3) for k, v in mean_stage.items()}))
+
+    # pipelined: phase A waits for its digests, phase B stays in flight
+    PC.reset_launch_counts()
+    secs = pipelined(lambda: ver.verify_batch_async(proofs, inputs), expected, PIPELINED,
+                     "PlonK batch")
+    piped = PC.launch_counts()
+    require(piped == {k: v * PIPELINED for k, v in want.items()},
+            f"pipelined PlonK launches {piped}, expected {want} a batch")
+    print(f"PlonK batch pipelined: {PIPELINED} batches through verify_batch_async, bools "
+          f"exact, {want['msm_affine']} / {want['miller_mixed']} / {want['final_exp']} "
+          f"launches of msm_affine / miller_mixed / final_exp a batch; "
+          f"{batch * PIPELINED / secs:.1f} proofs/s (synchronous: {batch / best:.1f} best, "
+          f"{batch * iters / sum(times):.1f} mean)")
+    return launches, piped
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_large_msm(iters: int):
+    """The large MSM through its entry points: TorchBackend.msm at 80
+    points (K6 through msm_best, against the oracle), then sharded_msm on
+    the bench's 2^16 trapdoor points over a world-size-1 NCCL group
+    (exact against the closed form) and its wall clock, the port's
+    counterpart of the JAX bench's msm_2e16_sharded_wallclock on one
+    card. Returns the launches of both."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from snark_bn254_verifier_tpu_torch import TorchBackend
+    from snark_bn254_verifier_tpu_torch.fixtures.msm_lanes import trapdoor_msm
+    from snark_bn254_verifier_tpu_torch.models.packing import unpack_g1
+    from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
+    from snark_bn254_verifier_tpu_torch.parallel.sharded import (init_distributed, make_mesh,
+                                                                 sharded_msm)
+
+    pts, scs, expected80 = trapdoor_msm(80, MSM_SEED)
+    points, scal, expected = trapdoor_inputs(MSM_N)
+    backend = TorchBackend("cuda")
+    init_distributed(init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, model_parallelism=1)
+        PC.reset_launch_counts()
+        got80 = backend.msm(pts, scs)
+        out = sharded_msm(mesh, points, scal)
+        launches = PC.launch_counts()
+        require(got80 == expected80, "TorchBackend.msm (80 points) != closed form")
+        require(unpack_g1(*out)[0] == expected, "sharded_msm (2^16, world 1) != closed form")
+        require(launches["msm_pippenger"] == 2 and launches["msm_affine"] == 1,
+                f"large MSM launches {launches}: K6 twice (backend, shard), K2 once (the sum)")
+        times = []
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sharded_msm(mesh, points, scal)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        dist.destroy_process_group()
+    print(f"large MSM: TorchBackend.msm at 80 points and sharded_msm at 2^16 on a "
+          f"world-size-1 NCCL group exact; launches {launches}; sharded_msm wall clock over "
+          f"{iters} calls: median {statistics.median(times):.3f} ms, best {min(times):.3f} ms")
     return launches
 
 
@@ -1109,15 +1325,22 @@ def main() -> int:
 
     ctx = Ctx(BATCH, SEED)
     results = {name: KERNEL_PHASES[name](ctx) for name in PC.KERNEL_ENTRY_POINTS}
-    slice_launches = run_slice(BATCH, ITERS)
-    plonk_launches = run_plonk_batch(BATCH, ITERS)
+    slice_launches, slice_piped = run_slice(BATCH, ITERS)
+    plonk_launches, plonk_piped = run_plonk_batch(BATCH, ITERS)
     single_launches, per_call = run_single(SINGLE_ITERS)
+    msm_launches = run_large_msm(ITERS)
     per_call["slice"] = slice_launches  # one call of verify_batch
     per_call["plonk_batch"] = plonk_launches  # one call of PlonkBatchVerifier.verify_batch
-    launches = {name: slice_launches[name] + plonk_launches[name] + single_launches[name]
-                for name in PC.KERNEL_ENTRY_POINTS}
+    per_call["slice_pipelined"] = slice_piped  # PIPELINED calls of verify_batch_async
+    per_call["plonk_pipelined"] = plonk_piped
+    per_call["large_msm"] = msm_launches  # TorchBackend.msm (80 points) + sharded_msm (2^16)
+    paths = (slice_launches, plonk_launches, single_launches, msm_launches, slice_piped,
+             plonk_piped)
+    launches = {name: sum(p[name] for p in paths) for name in PC.KERNEL_ENTRY_POINTS}
     require(set(SLICE_KERNELS) | set(PLONK_BATCH_KERNELS) | set(SINGLE_KERNELS)
-            == set(PC.KERNEL_ENTRY_POINTS) - set(UNLAUNCHED), "a kernel is launched by no path")
+            | set(LARGE_MSM_KERNELS) == set(PC.KERNEL_ENTRY_POINTS) - set(UNLAUNCHED),
+            "a kernel is launched by no path")
+    require(all(launches[name] for name in LARGE_MSM_KERNELS), "the large MSM launched no K6")
     require(not any(launches[name] for name in UNLAUNCHED), "mont_mul was launched by a path")
 
     attrs = kernel_attrs(kl.lib)
@@ -1137,8 +1360,8 @@ def main() -> int:
             "bound_by": results[name]["bound_by"],
             "share_of_bound": results[name]["bound_ms"] / results[name]["ms"],
             # no PyTorch call computes a Montgomery product, the G2
-            # on-curve mask, an MSM over BN254, a Miller loop or a final
-            # exponentiation
+            # on-curve mask, an MSM over BN254 (small or bucketed), a
+            # Miller loop or a final exponentiation
             "library_ms": None,
             **attrs[name],
             **{k: v for k, v in results[name].items()

@@ -3,7 +3,7 @@
 // the host, so the 16<->32-bit limb conversion, the CIOS and the
 // tower/curve/pairing formulas are checked without a card. K1 and its
 // fused form, the G2 on-curve mask, run lane by lane; the team kernels
-// (K2-K5) run block by block, each thread of a block as a host thread,
+// (K2-K5) and K6's bucket launch run block by block, each thread of a block as a host thread,
 // meeting at a barrier wherever the card's threads meet at __syncthreads.
 // It is built twice, with each form of the Montgomery product
 // (BN_ROLLED_CIOS, fp.cuh), so each kernel's tests run the form its unit
@@ -11,7 +11,7 @@
 #include <thread>
 #include <vector>
 
-#include "msm.cuh"
+#include "pippenger.cuh"
 
 // Runs body(tid, block, smem) for every thread of the grid of a team
 // kernel over n lanes (team threads per lane, lpb lanes per block), one
@@ -112,6 +112,22 @@ int host_msm_affine(const int32_t* px, const int32_t* py, const uint8_t* pinf,
                  [&](int tid, long long block, uint32_t* smem) {
                    msm_affine_team(tid, block, smem, px, py, pinf, sc, npts, ox, oy, oinf, n);
                  });
+  return 0;
+}
+
+// K6's two launches: a block of pip_threads(c) host threads per (lane,
+// window), then Horner lane by lane (pippenger.cuh).
+int host_msm_pippenger(const int32_t* px, const int32_t* py, const int32_t* order,
+                       const int32_t* starts, int npts, int c, int32_t* wsum, int32_t* ox,
+                       int32_t* oy, uint8_t* oinf, long long n) {
+  if (npts < 1 || c < 1 || c > 16) return 1;
+  host_team_grid(n * pip_windows(c), pip_threads(c), 1, pip_smem_bytes(c),
+                 [&](int tid, long long block, uint32_t* smem) {
+                   pippenger_window_team(tid, block, (g1j*)smem, px, py, order, starts, npts, c,
+                                         (uint32_t*)wsum, n);
+                 });
+  for (long long lane = 0; lane < n; ++lane)
+    pippenger_horner_lane(lane, (const uint32_t*)wsum, c, ox, oy, oinf, n);
   return 0;
 }
 

@@ -76,13 +76,33 @@ def pair_major(pack, lanes) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     return tuple(np.stack([a[i] for a in packed]) for i in range(3))
 
 
-def unpack_g1(x: torch.Tensor, y: torch.Tensor, inf: torch.Tensor) -> List:
-    """Affine device result (x (16, B), y (16, B), inf (B,)) -> oracle
-    points (None = infinity), with one device-to-host copy."""
-    both = torch.cat([x, y, inf.to(x.dtype).unsqueeze(0)]).cpu().numpy()
+def pack_msm(points, scalars):
+    """One MSM's oracle points and Fr scalars -> the MSM kernels' layout at
+    batch one: ((x (N,16,1), y (N,16,1), inf (N,1)), scalars (N,16,1))."""
+    x, y, inf = pack_g1(points)
+    sc = pack_fr_canonical([s % FR.modulus for s in scalars])
+    return ((np.ascontiguousarray(x.T[..., None]), np.ascontiguousarray(y.T[..., None]),
+             inf[:, None]), np.ascontiguousarray(sc.T[..., None]))
+
+
+def stack_g1(x: torch.Tensor, y: torch.Tensor, inf: torch.Tensor) -> torch.Tensor:
+    """An affine result (x (16, B), y (16, B), inf (B,)) as one (33, B)
+    tensor on its device, so that one copy brings it to the host."""
+    return torch.cat([x, y, inf.to(x.dtype).unsqueeze(0)])
+
+
+def unpack_g1_rows(both: np.ndarray) -> List:
+    """A (33, B) host array of ``stack_g1`` -> oracle points (None =
+    infinity)."""
     b = both.shape[-1]
     xy = unpack_fq(both[:32].reshape(2, NUM_LIMBS, b).transpose(1, 0, 2))
     return [None if both[32, k] else (xy[k], xy[b + k]) for k in range(b)]
+
+
+def unpack_g1(x: torch.Tensor, y: torch.Tensor, inf: torch.Tensor) -> List:
+    """Affine device result (x (16, B), y (16, B), inf (B,)) -> oracle
+    points (None = infinity), with one device-to-host copy."""
+    return unpack_g1_rows(stack_g1(x, y, inf).cpu().numpy())
 
 
 def pack_fq12(values) -> np.ndarray:

@@ -7,25 +7,27 @@ interface of models/backend.py, so the protocol code (``verify_groth16``,
 tensors on the backend's device, runs its kernels and makes one copy back
 to the host:
 
-  msm, g1_mul            kernel K2 at batch one (a point per row)
+  msm, g1_mul            ops/msm.py::msm_best at batch one (a point per
+                         row): kernel K6 (Pippenger) at 64 points or more,
+                         else kernel K2
   pairing, pairing_batch kernel K5 over the pairs, then kernel K4
   pairing_batch_is_one   the same, compared with one on the device; one
                          bool comes back
 
 On a CUDA device every primitive goes through its kernels; a CPU device
-runs their plain twins. MSMs of any size run on K2 (the JAX package
-switches to Pippenger at 64 points, ops/msm.py:165; the port has no
-Pippenger kernel yet).
+runs their plain twins. The MSM switches to Pippenger at
+ops/msm.py::PIPPENGER_THRESHOLD points, as the JAX backend does
+(jax_backend.py:113-124 there).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..oracle import bn254 as bn
+from ..ops import msm as M
 from ..ops import pairing_cuda as PC
 from ..ops import tower as T
-from .packing import pack_fr_canonical, pack_g1, pack_g2, pair_major, unpack_fq12, unpack_g1
+from .packing import pack_g1, pack_g2, pack_msm, pair_major, unpack_fq12, unpack_g1
 
 
 def resolve_device(device) -> torch.device:
@@ -56,11 +58,9 @@ class TorchBackend:
             raise ValueError("one scalar per point")
         if n == 0:
             return None
-        pts = self._to_dev(pair_major(pack_g1, [[p] for p in points]))
-        # canonical Fr limbs, point-major: (n, 16, 1)
-        sc = torch.as_tensor(pack_fr_canonical([s % bn.R for s in scalars]).T[:, :, None],
-                             device=self.device).contiguous()
-        return unpack_g1(*PC.msm_affine(pts, sc))[0]
+        pts, sc = pack_msm(points, scalars)
+        out = M.msm_best(self._to_dev(pts), torch.as_tensor(sc, device=self.device))
+        return unpack_g1(*out)[0]
 
     def g1_mul(self, point, scalar):
         return self.msm([point], [scalar])

@@ -149,8 +149,8 @@ def team_unit(k: int) -> tuple:
 
 
 # One nvcc per compiled unit, all started together: (source, defines).
-# team_kernels.cu is built once per team kernel (K2-K5).
-UNITS = [("kernels.cu", ())] + [team_unit(k) for k in (2, 3, 4, 5)]
+# team_kernels.cu is built once per team kernel (K2-K5); pippenger.cu is K6.
+UNITS = [("kernels.cu", ())] + [team_unit(k) for k in (2, 3, 4, 5)] + [("pippenger.cu", ())]
 OBJ_DIR = BUILD_DIR / "obj"
 
 
@@ -224,12 +224,14 @@ def bind_kernels(lib_path: Path) -> ctypes.CDLL:
         "bn_miller_mixed": [_P] * 6 + [_I, _P, _P, _P, _N, _P],
         "bn_final_exp": [_P, _P, _N, _P],
         "bn_miller_product": [_P] * 4 + [_I, _P, _N, _P],
+        "bn_msm_pippenger": [_P] * 4 + [_I, _I] + [_P] * 4 + [_N, _P],
         "bn_mont_mul_attrs": [_P],
         "bn_g2_on_curve_attrs": [_P],
         "bn_msm_affine_attrs": [_P],
         "bn_miller_mixed_attrs": [_P],
         "bn_final_exp_attrs": [_P],
         "bn_miller_product_attrs": [_P],
+        "bn_msm_pippenger_attrs": [_P],
     }
     for fn, args in sigs.items():
         getattr(lib, fn).argtypes = args
@@ -249,7 +251,7 @@ def load_host_check(rolled: bool = False) -> ctypes.CDLL:
     """Build the kernels' headers with the host C++ compiler into a test
     library (csrc/host_check.cc) and load it; ``rolled`` builds it with
     the rolled Montgomery product (-DBN_ROLLED_CIOS=1), the form that
-    team_kernels.cu gives K2 and K5."""
+    team_kernels.cu gives K2 and K5 and pippenger.cu K6."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         raise RuntimeError("no host C++ compiler")
@@ -271,8 +273,9 @@ def load_host_check(rolled: bool = False) -> ctypes.CDLL:
     lib.host_miller_mixed.argtypes = [_P] * 6 + [_I, _P, _P, _P, _N]
     lib.host_final_exp.argtypes = [_P, _P, _N]
     lib.host_miller_product.argtypes = [_P] * 4 + [_I, _P, _N]
+    lib.host_msm_pippenger.argtypes = [_P] * 4 + [_I, _I] + [_P] * 4 + [_N]
     for fn in ("host_mont_mul", "host_fq_inv", "host_g2_on_curve", "host_fq12_mul",
                "host_msm_affine", "host_miller_mixed", "host_final_exp",
-               "host_miller_product"):
+               "host_miller_product", "host_msm_pippenger"):
         getattr(lib, fn).restype = _I
     return lib

@@ -1,4 +1,4 @@
-"""Wrappers of the fused K1 and kernels K2-K5 (CUDA), and the port's
+"""Wrappers of the fused K1 and kernels K2-K6 (CUDA), and the port's
 kernel registry.
 
 The counterparts of the entry points of
@@ -12,6 +12,9 @@ package's parallel/batch.py):
   miller_mixed    K3, replaces _miller_mixed_kernel
   final_exp       K4, replaces _fe_easy_expx_kernel + _fe_combine_kernel
   miller_product  K5, replaces _miller_kernel + _fq12_product_kernel
+  msm_pippenger   K6, the bucket MSM of ops/msm.py, which is XLA in the
+                  JAX package (ops/msm.py::msm_pippenger), with no Pallas
+                  original
 
 Each wrapper sends a CPU tensor to its plain twin and a CUDA tensor to
 its kernel, checks device, dtype, shape and contiguity, allocates its
@@ -19,7 +22,8 @@ outputs with ``torch.empty``, launches on its tensors' device and that
 device's current stream, raises on a CUDA error and counts its launches
 in ``<wrapper>.launches``. No wrapper pads the batch: the kernels mask
 the ragged edge. g2_on_curve runs one thread per lane; K2-K5 run on a team of threads per lane, at the shapes
-csrc/msm.cuh (K2) and csrc/team.cuh (K3-K5) fix.
+csrc/msm.cuh (K2) and csrc/team.cuh (K3-K5) fix; K6 a block per (lane,
+window), then a thread per lane (csrc/pippenger.cuh).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from . import curve as C
+from . import msm as M
 from . import pairing as PR
 from .field_cuda import launch, mont_mul
 from .lines import STEPS
@@ -36,7 +41,7 @@ from .limbs import NUM_LIMBS
 # holds it equal to the wrappers with a launch counter and to the phases
 # of chip_smoke.py, so no kernel ships without an on-card check.
 KERNEL_ENTRY_POINTS = ("mont_mul", "g2_on_curve", "msm_affine", "miller_mixed",
-                       "final_exp", "miller_product")
+                       "final_exp", "miller_product", "msm_pippenger")
 
 
 NF_MAX = 2  # fixed pairs whose line tables K3 stages in shared memory
@@ -225,11 +230,47 @@ def miller_product(pairs_p, pairs_q):
     return out
 
 
+def msm_pippenger(points, scalars, c: int = 8):
+    """Per-lane bucket MSM sum_j scalars[j] * points[j] in affine form,
+    kernel K6 (two launches, counted as one call), for large point counts.
+
+    points and scalars as ``msm_affine``'s, c the window width (1..16).
+    The digits, their sort and the buckets' bounds are torch glue on the
+    card (ops/msm.py::bucket_order); the wrapper allocates the window
+    sums' scratch. Returns (x (16,B) int32, y (16,B) int32, inf (B,)
+    bool); infinity is (0, 0, True)."""
+    px, py, pinf = points
+    if _on_cpu(px, py, pinf, scalars):
+        return M.pippenger_plain(points, scalars, c)
+    n, _, b = px.shape
+    if n < 1:
+        raise ValueError("msm_pippenger: needs at least one point")
+    for name, t in (("px", px), ("py", py), ("scalars", scalars)):
+        _expect(name, t, (n, NUM_LIMBS, b))
+    _expect("pinf", pinf, (n, b), torch.bool)
+    _, order, starts = M.bucket_order(pinf, scalars, c)
+    px, py = px.contiguous(), py.contiguous()
+    order, starts = order.to(torch.int32).contiguous(), starts.to(torch.int32).contiguous()
+    wsum = torch.empty((b, M.windows(c), 24), dtype=torch.int32, device=px.device)
+    ox = torch.empty((NUM_LIMBS, b), dtype=torch.int32, device=px.device)
+    oy = torch.empty_like(ox)
+    oinf = torch.empty((b,), dtype=torch.bool, device=px.device)
+    if b == 0:
+        return ox, oy, oinf
+    launch(ox.device, "bn_msm_pippenger", px.data_ptr(), py.data_ptr(), order.data_ptr(),
+           starts.data_ptr(), n, c, wsum.data_ptr(), ox.data_ptr(), oy.data_ptr(),
+           oinf.data_ptr(), b)
+    msm_pippenger.launches += 1
+    return ox, oy, oinf
+
+
 g2_on_curve.launches = 0
 msm_affine.launches = 0
 miller_mixed.launches = 0
 final_exp.launches = 0
 miller_product.launches = 0
+msm_pippenger.launches = 0
 
 __all__ = ["KERNEL_ENTRY_POINTS", "mont_mul", "g2_on_curve", "msm_affine", "miller_mixed",
-           "final_exp", "miller_product", "launch_counts", "reset_launch_counts"]
+           "final_exp", "miller_product", "msm_pippenger", "launch_counts",
+           "reset_launch_counts"]

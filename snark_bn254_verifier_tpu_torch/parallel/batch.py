@@ -40,11 +40,25 @@ plonk/verify.rs:284 -> kzg.rs:46 of the reference):
 
 PlonK proofs hold only G1 points, so there is no G2 mask. A bad proof
 masks its lane False instead of raising. On a CUDA device every stage
-goes through its kernel; a CPU device runs the plain twins.
+goes through its kernel; a CPU device runs the plain twins. Every MSM
+goes through ops/msm.py::msm_best, as the JAX package's _msm_affine
+(batch.py:177-197 there): Pippenger (K6) from PIPPENGER_THRESHOLD points,
+which only a Groth16 VK with 63 or more public inputs reaches, else K2.
+
+``verify_batch_async`` (batch.py:280-325 and :478-627 there) returns the
+device bool tensor without waiting for the card, so the caller can parse
+and pack the next batch while this one runs; ``verify_batch`` is that
+call plus one copy to the host. On CUDA each batch in flight runs on a
+stream of its own (``_Ring``: IN_FLIGHT streams taken in turn), each
+phase's host arrays go to the card in one copy, without blocking, from
+that stream's pinned staging buffer, and one event marks the batch's
+end. PlonK keeps its phase-A round trip: the digests come to the host
+for the KZG fold challenge, then phase B is left in flight.
 """
 
 from __future__ import annotations
 
+import contextlib
 import secrets
 import struct
 import time
@@ -64,37 +78,210 @@ from ..models import kzg as kzg_mod
 from ..models import plonk as plonk_mod
 from ..models.torch_backend import resolve_device
 from ..models.packing import (pack_fq12, pack_fr_canonical, pack_g1, pack_g2, packer,
-                              unpack_g1)
+                              stack_g1, unpack_g1_rows)
 from ..ops import field as F
 from ..ops import lines as LN
+from ..ops import msm as M
 from ..ops import pairing_cuda as PC
 from ..ops import tower as T
 
 R = bn.R
+IN_FLIGHT = 2  # CUDA streams a verifier cycles through, one a batch in flight
+_ALIGN = 16  # bytes between staged arrays: every dtype's view stays aligned
 
 
-class _Laps:
-    """Synchronised stage laps of one batch: ``lap(stage)`` waits for the
-    device, then books the host ms since the previous lap under
-    ``stage`` in ``ms``."""
+def _event() -> torch.cuda.Event:
+    """A timing event recorded on the current stream."""
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+class _Stages:
+    """Stage times of one batch, taken without waiting for the card: a
+    host stage is a ``perf_counter`` lap (``host``); a device stage
+    (``device``), on CUDA, the time between two events on the batch's
+    stream, from the last device stage or ``begin``; on the CPU every
+    stage is a host lap. Host time spent queueing device work is no
+    stage. ``ms()`` reads the events, so only after the batch's end."""
 
     def __init__(self, device: torch.device):
-        self.device = device
-        self.ms = {}
+        self.cuda = device.type == "cuda"
         self.start = self.t = time.perf_counter()
+        self.total = {}  # stage -> host ms so far
+        self.spans = []  # (stage, start event, end event)
+        self.last = None
 
-    def __call__(self, stage: str) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def host(self, stage: str) -> None:
         now = time.perf_counter()
-        self.ms[stage] = (now - self.t) * 1e3
+        self.total[stage] = self.total.get(stage, 0.0) + (now - self.t) * 1e3
         self.t = now
+
+    def resume(self) -> None:
+        """Start the next host lap now (after a wait for the card)."""
+        self.t = time.perf_counter()
+
+    def begin(self) -> None:
+        if self.cuda:
+            self.last = _event()
+        self.resume()
+
+    def device(self, stage: str) -> None:
+        if not self.cuda:
+            return self.host(stage)
+        ev = _event()
+        self.spans.append((stage, self.last, ev))
+        self.total.setdefault(stage, 0.0)
+        self.last = ev
+        self.resume()
+
+    def ms(self) -> dict:
+        out = dict(self.total)
+        for stage, a, b in self.spans:
+            out[stage] += a.elapsed_time(b)
+        return out
 
     def elapsed_s(self) -> float:
         return time.perf_counter() - self.start
 
 
-class Groth16BatchVerifier:
+class _Slot:
+    """One stream of a ``_Ring``, its pinned staging buffer (kept from
+    batch to batch, grown when short), and its latest batch's end event."""
+
+    def __init__(self, device: torch.device):
+        self.stream = torch.cuda.Stream(device)
+        self.staging = torch.empty(0, dtype=torch.uint8)
+        self.end: Optional[torch.cuda.Event] = None
+
+
+class _Ring:
+    """IN_FLIGHT CUDA streams, taken in turn, one a batch. A slot is handed
+    out again only after its previous batch's end event, so that batch no
+    longer reads the slot's staging buffer; with more than IN_FLIGHT
+    batches queued, ``take`` waits for the oldest."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.slots: List[_Slot] = []
+        self.count = 0
+
+    def take(self) -> _Slot:
+        if len(self.slots) < IN_FLIGHT:
+            self.slots.append(_Slot(self.device))
+        slot = self.slots[self.count % IN_FLIGHT]
+        self.count += 1
+        if slot.end is not None:
+            slot.end.synchronize()
+        slot.end = None
+        return slot
+
+
+class _Run:
+    """A dispatched batch: its (B,) bool tensor on the device, its stage
+    clock and, on CUDA, its ring slot."""
+
+    def __init__(self, ok: torch.Tensor, stages: _Stages, slot: Optional[_Slot] = None,
+                 extra: Optional[dict] = None):
+        self.ok, self.stages, self.slot = ok, stages, slot
+        self.extra = extra or {}
+
+    def handed_over(self) -> torch.Tensor:
+        """The bools for the caller, without a host sync: the caller's
+        current stream waits for the batch's end, so the tensor is ready
+        for any work queued there (``.cpu()`` included)."""
+        if self.slot is not None:
+            with torch.cuda.stream(self.slot.stream):
+                self.slot.end = torch.cuda.Event()
+                self.slot.end.record()
+            current = torch.cuda.current_stream(self.ok.device)
+            current.wait_event(self.slot.end)
+            self.ok.record_stream(current)
+        return self.ok
+
+    def on_host(self) -> np.ndarray:
+        """The bools on the host: one copy (into a pinned buffer, on the
+        batch's stream, booked to ``compare_ms``), then a wait for the
+        batch's end."""
+        if self.slot is None:
+            return self.ok.cpu().numpy()
+        with torch.cuda.stream(self.slot.stream):
+            host = torch.empty(self.ok.shape, dtype=torch.bool, pin_memory=True)
+            host.copy_(self.ok, non_blocking=True)
+            self.stages.device("compare_ms")
+            self.slot.end = torch.cuda.Event()
+            self.slot.end.record()
+        self.slot.end.synchronize()
+        return host.numpy()
+
+
+class _Flights:
+    """What both batch verifiers share: the host->device copies and the
+    streams of the batches in flight."""
+
+    device: torch.device
+
+    def _init_flights(self) -> None:
+        self._ring = _Ring(self.device) if self.device.type == "cuda" else None
+        self._vk_ready = False
+
+    def _to_dev(self, arr) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(arr), device=self.device)
+
+    def _vk_tensors(self) -> None:
+        """Build the VK's cached device tensors once, then wait for them
+        on CUDA: every batch's stream reads them, so they must be written
+        before the first batch starts."""
+        raise NotImplementedError
+
+    def _flight(self):
+        """(slot, context) for the device part of a batch: on CUDA the next
+        slot of the ring and its stream as the current one; on the CPU no
+        slot and no stream."""
+        if not self._vk_ready:
+            self._vk_tensors()
+            if self._ring is not None:
+                torch.cuda.synchronize(self.device)
+            self._vk_ready = True
+        if self._ring is None:
+            return None, contextlib.nullcontext()
+        slot = self._ring.take()
+        return slot, torch.cuda.stream(slot.stream)
+
+    def _upload(self, slot: Optional[_Slot], *arrays) -> list:
+        """Host arrays on the device: on CUDA in one copy, without
+        blocking, on the current stream, through the slot's pinned staging
+        buffer. The buffer is rewritten, so its previous copy must have
+        ended: the slot's last batch has, and PlonK's phase-A copy ended
+        before its digests were read."""
+        arrays = [np.ascontiguousarray(a) for a in arrays]
+        if slot is None:
+            return [torch.as_tensor(a, device=self.device) for a in arrays]
+        need = _staged_bytes(arrays)
+        if slot.staging.numel() < need:
+            slot.staging = torch.empty(need, dtype=torch.uint8, pin_memory=True)
+        return _staged(arrays, slot.staging, self.device)
+
+
+def _staged_bytes(arrays) -> int:
+    return sum(-(-a.nbytes // _ALIGN) * _ALIGN for a in arrays)
+
+
+def _staged(arrays, staging: torch.Tensor, device: torch.device) -> list:
+    """The contiguous ``arrays`` packed into the uint8 host tensor
+    ``staging`` at aligned offsets, copied to ``device`` in one copy (not
+    blocking where ``staging`` is pinned) and viewed back as the arrays."""
+    host = staging.numpy()
+    offsets, off = [], 0
+    for a in arrays:
+        host[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
+        offsets.append(off)
+        off += -(-a.nbytes // _ALIGN) * _ALIGN
+    dev = staging[:off].to(device, non_blocking=True)
+    return [dev[o:o + a.nbytes].view(torch.from_numpy(a[:0]).dtype).view(a.shape)
+            for a, o in zip(arrays, offsets)]
+
+class Groth16BatchVerifier(_Flights):
     """VK-specialised batched Groth16 verifier on one torch device."""
 
     def __init__(self, vk_bytes: bytes, device="cuda"):
@@ -105,9 +292,7 @@ class Groth16BatchVerifier:
         self._alpha_beta = None
         self._k_points = _fixed_points(self.vk.k, self.device)
         self.last_stats: Optional[RunStats] = None
-
-    def _to_dev(self, arr) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(arr), device=self.device)
+        self._init_flights()
 
     def line_tables(self):
         """(lines, tails) tensors of gamma and -delta, built once per VK."""
@@ -125,17 +310,48 @@ class Groth16BatchVerifier:
             self._alpha_beta = self._to_dev(pack_fq12([ab]))
         return self._alpha_beta
 
+    def _vk_tensors(self) -> None:
+        self.line_tables()
+        self.alpha_beta()
+
     def verify_batch(self, proofs: Sequence[bytes],
                      public_inputs: Sequence[Sequence[int]]) -> np.ndarray:
-        """One bool per proof: True where the proof verifies."""
+        """One bool per proof: True where the proof verifies.
+        ``verify_batch_async`` plus one copy to the host; fills
+        ``last_stats`` (``extra["stage_ms"]``: host stages by host laps,
+        device stages by CUDA events on CUDA)."""
+        run = self._dispatch(proofs, public_inputs)
+        ok = run.on_host()
+        self.last_stats = RunStats(
+            protocol="groth16",
+            batch_size=len(proofs),
+            n_chips=1,
+            elapsed_s=run.stages.elapsed_s(),
+            n_valid=int(ok.sum()),
+            pairings_per_proof=3,  # e(A,B) e(L,gamma) e(C,-delta) vs e(alpha,beta)
+            extra={"device": str(self.device), **run.extra, "packer": packer(),
+                   "stage_ms": run.stages.ms()},
+        )
+        return ok
+
+    def verify_batch_async(self, proofs: Sequence[bytes],
+                           public_inputs: Sequence[Sequence[int]]) -> torch.Tensor:
+        """The (B,) bool tensor of ``verify_batch`` on the verifier's
+        device, returned without waiting for the card: on CUDA the batch
+        runs on a stream of its own, and the caller's current stream waits
+        for it, so ``.cpu()`` (or any work queued there) sees the result."""
+        return self._dispatch(proofs, public_inputs).handed_over()
+
+    def _dispatch(self, proofs: Sequence[bytes],
+                  public_inputs: Sequence[Sequence[int]]) -> _Run:
         b = len(proofs)
         if len(public_inputs) != b:
             raise ValueError("one public-input list per proof")
-        lap = _Laps(self.device)
+        stages = _Stages(self.device)
         parsed = self._parse_native(proofs)
         parser = "native" if parsed is not None else "python"
         ar, bs, krs, valid = parsed if parsed is not None else self._parse_python(proofs)
-        lap("parse_ms")
+        stages.host("parse_ms")
 
         # prepared input = 1*k0 + sum in_i * k_{i+1} (k0 folded in with scalar 1)
         cols = []
@@ -146,39 +362,29 @@ class Groth16BatchVerifier:
             else:
                 cols.append([1] + [s % R for s in ins])
         sc = _pack_columns(cols, self.n_inputs + 1, b)
-        lap("pack_ms")
+        stages.host("pack_ms")
 
-        k_points = tuple(v.expand(v.shape[:-1] + (b,)) for v in self._k_points)
-        sc = self._to_dev(sc)
-        ar, bs, krs = (tuple(self._to_dev(x) for x in pt) for pt in (ar, bs, krs))
-        lines, tails = self.line_tables()
-        alpha_beta = self.alpha_beta()
-        valid = self._to_dev(valid)
-        lap("upload_ms")
+        slot, stream = self._flight()
+        with stream:
+            stages.begin()
+            k_points = tuple(v.expand(v.shape[:-1] + (b,)) for v in self._k_points)
+            sc, valid, *flat = self._upload(slot, sc, valid, *ar, *bs, *krs)
+            ar, bs, krs = tuple(flat[:3]), tuple(flat[3:6]), tuple(flat[6:])
+            lines, tails = self.line_tables()
+            stages.device("upload_ms")
 
-        if parser == "native":  # the Python parser checked the curve itself
-            valid = PC.g2_on_curve(bs, valid)
-        lap("g2_mask_ms")
-        prepared = PC.msm_affine(k_points, sc)
-        lap("msm_ms")
-        f = PC.miller_mixed(ar, bs, (prepared, krs), lines, tails)
-        lap("miller_ms")
-        gt = PC.final_exp(f)
-        lap("final_exp_ms")
-        ok = (T.fq12_eq(gt, alpha_beta) & valid).cpu().numpy()
-        lap("compare_ms")
-
-        self.last_stats = RunStats(
-            protocol="groth16",
-            batch_size=b,
-            n_chips=1,
-            elapsed_s=lap.elapsed_s(),
-            n_valid=int(ok.sum()),
-            pairings_per_proof=3,  # e(A,B) e(L,gamma) e(C,-delta) vs e(alpha,beta)
-            extra={"device": str(self.device), "parser": parser, "packer": packer(),
-                   "stage_ms": lap.ms},
-        )
-        return ok
+            if parser == "native":  # the Python parser checked the curve itself
+                valid = PC.g2_on_curve(bs, valid)
+            stages.device("g2_mask_ms")
+            prepared = M.msm_best(k_points, sc)
+            stages.device("msm_ms")
+            f = PC.miller_mixed(ar, bs, (prepared, krs), lines, tails)
+            stages.device("miller_ms")
+            gt = PC.final_exp(f)
+            stages.device("final_exp_ms")
+            ok = T.fq12_eq(gt, self.alpha_beta()) & valid
+            stages.device("compare_ms")
+        return _Run(ok, stages, slot, {"parser": parser})
 
     def _parse_native(self, proofs: Sequence[bytes]):
         """Native batch parse (C++); None when the library is unavailable or
@@ -247,28 +453,30 @@ def _batch_inv_mod_r(values: Sequence[int]) -> List[Optional[int]]:
     return out
 
 
-def _plonk_final(take, combo_rest, quot, digest, sc, lines, tails, one, valid, lap):
+def _plonk_final(take, combo_rest, quot, digest, sc, lines, tails, one, valid, stage):
     """Phase B on the device: the combo MSM (the phase-A ``digest``, then
     the rows ``combo_rest`` of ``take``) and the quotient MSM (rows
     ``quot``), kernel K2, with their scalars stacked in ``sc``; the
     quotient negated; e(combo, [1]_2) * e(-quot, [x]_2) as a fixed-only
     Miller product over the line tables, kernel K3; kernel K4; the
     compare with ``one``, ANDed with ``valid``. Returns the (B,) bool
-    tensor on the device; ``lap`` names each stage as it ends."""
+    tensor on the device; ``stage`` names each stage as it ends."""
     n_combo = len(combo_rest) + 1
     combo = tuple(torch.cat([d.unsqueeze(0), t]) for d, t in zip(digest, take(combo_rest)))
-    combo = PC.msm_affine(combo, sc[:n_combo])
-    qx, qy, qinf = PC.msm_affine(take(quot), sc[n_combo:])
-    lap("msm_b_ms")
+    combo = M.msm_best(combo, sc[:n_combo])
+    qx, qy, qinf = M.msm_best(take(quot), sc[n_combo:])
+    stage("msm_b_ms")
     neg_quot = (qx, F.fq_neg(qy), qinf)  # zero stays zero: infinity stays (0, 0)
     f = PC.miller_mixed(None, None, (combo, neg_quot), lines, tails)
-    lap("miller_ms")
+    stage("miller_ms")
     gt = PC.final_exp(f)
-    lap("final_exp_ms")
-    return T.fq12_eq(gt, one) & valid
+    stage("final_exp_ms")
+    ok = T.fq12_eq(gt, one) & valid
+    stage("compare_ms")
+    return ok
 
 
-class PlonkBatchVerifier:
+class PlonkBatchVerifier(_Flights):
     """VK-specialised batched PlonK verifier on one torch device (gnark
     semantics, BSB22 commitments included; a bad lane is masked False)."""
 
@@ -310,9 +518,10 @@ class PlonkBatchVerifier:
         self._quot = rows("hb", "hs")
         self._tables = None  # KZG ([1]_2, [x]_2) Miller line tables, lazy
         self.last_stats: Optional[RunStats] = None
+        self._init_flights()
 
-    def _to_dev(self, arr) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(arr), device=self.device)
+    def _vk_tensors(self) -> None:
+        self._kzg_tables()
 
     def _kzg_tables(self):
         """(lines, tails) of the KZG SRS's [1]_2 and [x]_2, both VK-fixed
@@ -326,12 +535,28 @@ class PlonkBatchVerifier:
                      rng=None) -> np.ndarray:
         """One bool per proof: True where the proof verifies. ``rng`` draws
         the KZG randomisers (a callable returning a nonzero Fr int), by
-        default from ``secrets``."""
+        default from ``secrets``. ``verify_batch_async`` plus one copy to
+        the host; fills ``last_stats`` (stage times as Groth16's)."""
+        run = self._dispatch(proofs, public_inputs, rng)
+        ok = run.on_host()
+        self.last_stats = self._stats(len(proofs), int(ok.sum()), run.stages)
+        return ok
+
+    def verify_batch_async(self, proofs: Sequence[bytes],
+                           public_inputs: Sequence[Sequence[int]], rng=None) -> torch.Tensor:
+        """The (B,) bool tensor of ``verify_batch`` on the verifier's
+        device. It waits for the card once, for the phase-A digests that
+        the KZG fold challenge binds; phase B is left in flight on the
+        batch's stream, which the caller's current stream waits for."""
+        return self._dispatch(proofs, public_inputs, rng).handed_over()
+
+    def _dispatch(self, proofs: Sequence[bytes], public_inputs: Sequence[Sequence[int]],
+                  rng) -> _Run:
         vk = self.vk
         b = len(proofs)
         if len(public_inputs) != b:
             raise ValueError("one public-input list per proof")
-        lap = _Laps(self.device)
+        stages = _Stages(self.device)
         valid = np.ones(b, dtype=bool)
         parsed: List[Optional[ser.PlonkProof]] = []
         for i, pb in enumerate(proofs):
@@ -349,7 +574,7 @@ class PlonkBatchVerifier:
             except (errors.VerifierError, IndexError, ValueError, struct.error):
                 valid[i] = False
                 parsed.append(None)
-        lap("parse_ms")
+        stages.host("parse_ms")
 
         # pass 1: the challenges and every denominator of the lane; one
         # inversion for the whole batch; pass 2: the rest, products only
@@ -380,11 +605,10 @@ class PlonkBatchVerifier:
                 except errors.VerifierError:
                     valid[i] = False
             lanes.append(lane)
-        lap("host_a_ms")
+        stages.host("host_a_ms")
 
         if not any(lane is not None for lane in lanes):  # no lane reaches the card
-            self.last_stats = self._stats(b, 0, lap)
-            return np.zeros(b, dtype=bool)
+            return _Run(torch.zeros(b, dtype=torch.bool, device=self.device), stages)
 
         # phase A: every lane's proof points (each VK point once), the
         # linearisation scalars; dead lanes carry G1_GEN and scalar 0
@@ -397,48 +621,48 @@ class PlonkBatchVerifier:
                inf.reshape(m, b))
         lin_sc = _pack_columns([lane and lane["lin_scalars"] for lane in lanes],
                                len(self._lin), b)
-        lap("pack_a_ms")
+        stages.host("pack_a_ms")
 
-        pts = tuple(torch.cat([self._to_dev(a), v.expand(v.shape[:-1] + (b,))])
-                    for a, v in zip(pts, self._vk_points))
-        lin_sc = self._to_dev(lin_sc)
-        lines, tails = self._kzg_tables()
-        lap("upload_a_ms")
+        slot, stream = self._flight()
+        with stream:
+            stages.begin()
+            lin_sc, *pts = self._upload(slot, lin_sc, *pts)
+            pts = tuple(torch.cat([a, v.expand(v.shape[:-1] + (b,))])
+                        for a, v in zip(pts, self._vk_points))
+            lines, tails = self._kzg_tables()
+            stages.device("upload_a_ms")
 
-        def take(idx):
-            return tuple(t.index_select(0, idx) for t in pts)
+            def take(idx):
+                return tuple(t.index_select(0, idx) for t in pts)
 
-        digest = PC.msm_affine(take(self._lin), lin_sc)
-        lap("msm_a_ms")
-        digests_host = unpack_g1(*digest)
-        lap("digest_copy_ms")
+            digest = M.msm_best(take(self._lin), lin_sc)
+            stages.device("msm_a_ms")
+            digests_host = _digests_on_host(digest, slot, stages)
 
-        # host: the KZG fold challenge binds the digest; the randomisers
-        rand_fr = rng if rng is not None else (lambda: secrets.randbelow(R - 1) + 1)
-        cols = [None if lane is None else
-                self._lane_fold(parsed[i], lane["zeta"], digests_host[i], rand_fr)
-                for i, lane in enumerate(lanes)]
-        lap("host_b_ms")
-        sc = _pack_columns(cols, len(self._combo_rest) + 1 + len(self._quot), b)
-        lap("pack_b_ms")
-        sc = self._to_dev(sc)
-        tvalid = self._to_dev(valid)
-        lap("upload_b_ms")
+            # host: the KZG fold challenge binds the digest; the randomisers
+            rand_fr = rng if rng is not None else (lambda: secrets.randbelow(R - 1) + 1)
+            cols = [None if lane is None else
+                    self._lane_fold(parsed[i], lane["zeta"], digests_host[i], rand_fr)
+                    for i, lane in enumerate(lanes)]
+            stages.host("host_b_ms")
+            sc = _pack_columns(cols, len(self._combo_rest) + 1 + len(self._quot), b)
+            stages.host("pack_b_ms")
+            stages.begin()
+            sc, tvalid = self._upload(slot, sc, valid)
+            stages.device("upload_b_ms")
 
-        ok = _plonk_final(take, self._combo_rest, self._quot, digest, sc, lines, tails,
-                          self._one, tvalid, lap).cpu().numpy()
-        lap("compare_ms")
-        self.last_stats = self._stats(b, int(ok.sum()), lap)
-        return ok
+            ok = _plonk_final(take, self._combo_rest, self._quot, digest, sc, lines, tails,
+                              self._one, tvalid, stages.device)
+        return _Run(ok, stages, slot)
 
-    def _stats(self, b: int, n_valid: int, lap: "_Laps") -> RunStats:
+    def _stats(self, b: int, n_valid: int, stages: _Stages) -> RunStats:
         host = ("parse_ms", "host_a_ms", "pack_a_ms", "host_b_ms", "pack_b_ms")
-        ms = lap.ms
+        ms = stages.ms()
         return RunStats(
             protocol="plonk",
             batch_size=b,
             n_chips=1,
-            elapsed_s=lap.elapsed_s(),
+            elapsed_s=stages.elapsed_s(),
             n_valid=n_valid,
             pairings_per_proof=2,  # the KZG two-pair batch check (kzg.rs:180-186)
             extra={"device": str(self.device), "packer": packer(), "stage_ms": ms,
@@ -541,6 +765,24 @@ class PlonkBatchVerifier:
         fe_total = (folded_eval + r_rand * zu) % R
         # combo = sum gpow_i digest_i + r z - fe_total [1]_1 + zeta H_b + r shifted H_s
         return gpow + [r_rand, (-fe_total) % R, zeta, r_rand * shifted % R, 1, r_rand]
+
+
+def _digests_on_host(digest, slot: Optional[_Slot], stages: _Stages) -> List:
+    """Phase A's affine digests as oracle points, booked to
+    ``digest_copy_ms``: one copy to the host (on CUDA into a pinned buffer
+    on the batch's stream, an event-timed stage, then a wait for this
+    batch alone) and the unpacking (a host lap)."""
+    both = stack_g1(*digest)
+    if slot is not None:
+        host = torch.empty(both.shape, dtype=both.dtype, pin_memory=True)
+        host.copy_(both, non_blocking=True)
+        stages.device("digest_copy_ms")
+        stages.last.synchronize()
+        stages.resume()
+        both = host
+    rows = unpack_g1_rows(both.numpy())
+    stages.host("digest_copy_ms")
+    return rows
 
 
 def _pack_columns(cols, n: int, b: int) -> np.ndarray:

@@ -3,7 +3,8 @@ the host C++ compiler into a test-only library (csrc/host_check.cc) and run
 against the oracle and the plain twins, the team kernels with one host
 thread per team thread. Covers the 16<->32-bit limb conversion, the 32-bit
 CIOS, the fused K1's G2 on-curve mask, the teams' Fq12 product, K2's MSM
-team, final_exp(miller_mixed) and K5's Miller-product team without a card,
+team, final_exp(miller_mixed), K5's Miller-product team and K6's bucket
+MSM without a card,
 each kernel's code with the form of the Montgomery product its unit runs
 on the card. Skips where no host
 C++ compiler is installed."""
@@ -390,3 +391,36 @@ def test_miller_product_team_ragged_block_equals_plain_twin(lib_rolled, n):
     out = torch.empty((16, 12, b), dtype=torch.int32)
     assert lib_rolled.host_miller_product(ptr(px), ptr(py), ptr(qx), ptr(qy), n, ptr(out), b) == 0
     assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("n,c", [(1, 2), (5, 4), (70, 3), (33, 5)])
+def test_msm_pippenger_lanes_equal_plain_twin(lib_rolled, n, c):
+    """K6's two launches (pippenger.cuh: a block of host threads per (lane,
+    window), then Horner lane by lane; the rolled Montgomery product, K6's)
+    over 5 lanes with the edge lanes of msm_edge_lanes, on the digit order
+    of ops/msm.py::bucket_order: limb-equal to the plain twin and to the
+    oracle. Narrow windows keep a block to 2^c host threads (c = 8 runs 256
+    a block, on the card in tests/test_torch_gpu.py and chip_smoke.py)."""
+    from snark_bn254_verifier_tpu_torch.ops import msm as M
+
+    b = 5
+    lanes, scal = msm_edge_lanes(random.Random(90 + n), n, b)
+    P = tuple(c_tensor(a) for a in pair_major(pack_g1, lanes))
+    sc = c_tensor(np.stack([FR.pack(s, mont=False) for s in scal]))
+    _, order, starts = M.bucket_order(P[2], sc, c)
+    order, starts = c_tensor(order.to(torch.int32)), c_tensor(starts.to(torch.int32))
+    wsum = torch.empty((b, M.windows(c), 24), dtype=torch.int32)
+    ox = torch.empty((16, b), dtype=torch.int32)
+    oy, oinf = torch.empty_like(ox), torch.empty(b, dtype=torch.bool)
+    assert lib_rolled.host_msm_pippenger(ptr(P[0]), ptr(P[1]), ptr(order), ptr(starts), n, c,
+                                         ptr(wsum), ptr(ox), ptr(oy), ptr(oinf), b) == 0
+    want = M.pippenger_plain(P, sc, c)
+    assert torch.equal(ox, want[0]) and torch.equal(oy, want[1]) and torch.equal(oinf, want[2])
+    xs, ys = unpack_fq(ox.numpy()), unpack_fq(oy.numpy())
+    for lane in range(b):
+        agg = {}
+        for j in range(n):
+            if lanes[j][lane] is not None:
+                agg[lanes[j][lane]] = (agg.get(lanes[j][lane], 0) + scal[j][lane]) % bn.R
+        got = None if oinf[lane] else (xs[lane], ys[lane])
+        assert got == bn.g1_msm(list(agg), list(agg.values())), lane

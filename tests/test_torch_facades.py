@@ -105,7 +105,7 @@ class _Stop(Exception):
 
 @pytest.mark.parametrize("entry", ["Groth16Verifier.verify", "PlonkVerifier.verify",
                                    "Groth16BatchVerifier", "PlonkBatchVerifier",
-                                   "TorchBackend"])
+                                   "TorchBackend", "init_distributed", "make_mesh"])
 def test_entry_points_default_to_the_card(g16, plonk, entry, monkeypatch):
     """Without a device argument every entry point asks for "cuda": the CPU
     runs only when the caller names it. The device resolver is replaced by
@@ -113,7 +113,7 @@ def test_entry_points_default_to_the_card(g16, plonk, entry, monkeypatch):
     from snark_bn254_verifier_tpu_torch import (Groth16BatchVerifier, PlonkBatchVerifier,
                                                 TorchBackend)
     from snark_bn254_verifier_tpu_torch.models import torch_backend
-    from snark_bn254_verifier_tpu_torch.parallel import batch
+    from snark_bn254_verifier_tpu_torch.parallel import batch, sharded
 
     asked = []
 
@@ -123,6 +123,7 @@ def test_entry_points_default_to_the_card(g16, plonk, entry, monkeypatch):
 
     monkeypatch.setattr(batch, "resolve_device", recorder)
     monkeypatch.setattr(torch_backend, "resolve_device", recorder)
+    monkeypatch.setattr(sharded, "resolve_device", recorder)
     call = {
         "Groth16Verifier.verify": lambda: Groth16Verifier.verify(g16.proof, g16.vk,
                                                                  g16.public_inputs),
@@ -131,6 +132,8 @@ def test_entry_points_default_to_the_card(g16, plonk, entry, monkeypatch):
         "Groth16BatchVerifier": lambda: Groth16BatchVerifier(g16.vk),
         "PlonkBatchVerifier": lambda: PlonkBatchVerifier(plonk.vk),
         "TorchBackend": lambda: TorchBackend(),
+        "init_distributed": lambda: sharded.init_distributed(),
+        "make_mesh": lambda: sharded.make_mesh(),
     }[entry]
     with pytest.raises(_Stop):
         call()

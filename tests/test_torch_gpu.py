@@ -1,6 +1,7 @@
 """The port's CUDA kernels on a card: each kernel against its plain PyTorch
-twin on the same CUDA tensors (exact), the batched slice on CUDA and one
-single-proof facade call on CUDA. Marked
+twin on the same CUDA tensors (exact), the batched slice on CUDA (also
+pipelined through verify_batch_async), the large MSM through
+TorchBackend.msm and one single-proof facade call on CUDA. Marked
 ``gpu``; every test skips where no CUDA device is present. On a machine
 with one, run ``python -m pytest --noconftest tests/test_torch_gpu.py -m gpu``
 (no JAX needed); chip_smoke.py runs the same checks at the main path's
@@ -12,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from snark_bn254_verifier_tpu_torch import Groth16BatchVerifier, Groth16Verifier, PlonkBatchVerifier
+from snark_bn254_verifier_tpu_torch import (Groth16BatchVerifier, Groth16Verifier,
+                                            PlonkBatchVerifier, TorchBackend)
 from snark_bn254_verifier_tpu_torch.fixtures.g2_lanes import g2_mask_lanes
 from snark_bn254_verifier_tpu_torch.fixtures.gen import gen_groth16_vector
 from snark_bn254_verifier_tpu_torch.fixtures.plonk_lanes import KINDS, plonk_batch_lanes
@@ -20,6 +22,7 @@ from snark_bn254_verifier_tpu_torch.models.packing import pack_g1, pack_g2, pair
 from snark_bn254_verifier_tpu_torch.ops import curve as C
 from snark_bn254_verifier_tpu_torch.ops import field as F
 from snark_bn254_verifier_tpu_torch.ops import lines as LN
+from snark_bn254_verifier_tpu_torch.ops import msm as M
 from snark_bn254_verifier_tpu_torch.ops import pairing as PR
 from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
 from snark_bn254_verifier_tpu_torch.ops.limbs import FQ, FR
@@ -198,7 +201,8 @@ def test_plonk_batch_on_cuda(cuda):
     ok = ver.verify_batch(proofs, inputs, rng=lambda: rng.randrange(1, bn.R))
     assert ok.tolist() == expected
     assert PC.launch_counts() == {"mont_mul": 0, "g2_on_curve": 0, "msm_affine": 3,
-                                  "miller_mixed": 1, "final_exp": 1, "miller_product": 0}
+                                  "miller_mixed": 1, "final_exp": 1, "miller_product": 0,
+                                  "msm_pippenger": 0}
     cpu = PlonkBatchVerifier(vec.vk, device="cpu").verify_batch(proofs[:8], inputs[:8])
     assert cpu.tolist() == ok[:8].tolist()
 
@@ -226,3 +230,74 @@ def test_groth16_facade_on_cuda(cuda):
     assert Groth16Verifier.verify(vec.proof, vec.vk, vec.public_inputs, device="cuda") is True
     launches = PC.launch_counts()
     assert all(launches[k] > 0 for k in ("msm_affine", "miller_product", "final_exp"))
+
+
+@pytest.mark.parametrize("n,c,b", [(70, 8, 3), (5, 4, 1), (300, 8, 2), (64, 12, 1)])
+def test_msm_pippenger_kernel_equals_plain(cuda, n, c, b):
+    """K6 on ragged sizes and window widths, with points at infinity, zero
+    scalars and one point repeated (P + P in a bucket) on lane 0: one
+    counted launch, exact against its plain twin and K2."""
+    rng = random.Random(90 + n)
+    pool = points(rng, 5)
+    lanes = [[pool[(i * j) % 5] if (i + j) % 7 else None for i in range(b)] for j in range(n)]
+    for j in range(n):
+        lanes[j][0] = pool[0]
+    sc = np.stack([FR.pack([rng.randrange(bn.R) if (i + j) % 5 else 0 for i in range(b)],
+                           mont=False) for j in range(n)])
+    P, S = on(cuda, pair_major(pack_g1, lanes)), torch.as_tensor(sc, device=cuda)
+    before = PC.msm_pippenger.launches
+    got = PC.msm_pippenger(P, S, c)
+    assert PC.msm_pippenger.launches == before + 1
+    want = M.pippenger_plain(tuple(t.cpu() for t in P), S.cpu(), c)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    assert all(torch.equal(g, k) for g, k in zip(got, PC.msm_affine(P, S)))
+
+
+def test_torch_backend_msm_large_on_cuda(cuda):
+    rng = random.Random(91)
+    pool = points(rng, 4)
+    pts = [pool[i % 4] for i in range(80)]
+    scs = [rng.randrange(bn.R) for _ in range(80)]
+    PC.reset_launch_counts()
+    got = TorchBackend("cuda").msm(pts, scs)
+    assert PC.launch_counts()["msm_pippenger"] == 1 and PC.launch_counts()["msm_affine"] == 0
+    agg = {}
+    for p, s_ in zip(pts, scs):
+        agg[p] = (agg.get(p, 0) + s_) % bn.R
+    assert got == bn.g1_msm(list(agg), list(agg.values()))
+
+
+def test_verify_batch_async_pipelined_on_cuda(cuda):
+    """Groth16 and PlonK batches, two in flight on their streams: the exact
+    bools on every batch, and per batch one launch each of g2_on_curve,
+    msm_affine, miller_mixed and final_exp (Groth16), three msm_affine, one
+    miller_mixed and one final_exp (PlonK)."""
+    from snark_bn254_verifier_tpu_torch.fixtures.groth16_lanes import groth16_batch_lanes
+
+    vec, proofs, inputs, expected = groth16_batch_lanes(B)
+    ver = Groth16BatchVerifier(vec.vk, device="cuda")
+    ver.verify_batch(proofs, inputs)  # the VK's tensors, outside the counted run
+    PC.reset_launch_counts()
+    out = [ver.verify_batch_async(proofs, inputs) for _ in range(2)]
+    for _ in range(2):
+        assert out.pop(0).cpu().tolist() == expected
+        out.append(ver.verify_batch_async(proofs, inputs))
+    for ok in out:
+        assert ok.cpu().tolist() == expected
+    n = 4
+    assert PC.launch_counts() == {"mont_mul": 0, "g2_on_curve": n, "msm_affine": n,
+                                  "miller_mixed": n, "final_exp": n, "miller_product": 0,
+                                  "msm_pippenger": 0}
+
+    bad = {3 + 4 * k: kind for k, kind in enumerate(KINDS)}
+    vec, proofs, inputs, expected = plonk_batch_lanes(B, bad)
+    ver = PlonkBatchVerifier(vec.vk, device="cuda")
+    PC.reset_launch_counts()
+    first = ver.verify_batch_async(proofs, inputs)
+    second = ver.verify_batch_async(proofs, inputs)
+    assert first.cpu().tolist() == expected
+    assert ver.verify_batch(proofs, inputs).tolist() == expected
+    assert second.cpu().tolist() == expected
+    assert PC.launch_counts() == {"mont_mul": 0, "g2_on_curve": 0, "msm_affine": 9,
+                                  "miller_mixed": 3, "final_exp": 3, "miller_product": 0,
+                                  "msm_pippenger": 0}

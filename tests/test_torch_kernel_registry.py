@@ -51,9 +51,12 @@ def test_every_kernel_has_a_cuda_entry_point():
 
 def test_chip_smoke_paths_launch_every_kernel():
     """The kernels chip_smoke requires of its paths (the Groth16 slice, the
-    PlonK batch, the single proofs) cover the registry but the kernels no
-    path launches; the PlonK batch launches no G2 kernel."""
+    PlonK batch, the single proofs, the large MSM) cover the registry but
+    the kernels no path launches; the PlonK batch launches no G2 kernel,
+    and the large MSM launches K6."""
     smoke = _load_chip_smoke()
-    paths = set(smoke.SLICE_KERNELS) | set(smoke.PLONK_BATCH_KERNELS) | set(smoke.SINGLE_KERNELS)
+    paths = (set(smoke.SLICE_KERNELS) | set(smoke.PLONK_BATCH_KERNELS)
+             | set(smoke.SINGLE_KERNELS) | set(smoke.LARGE_MSM_KERNELS))
     assert paths == set(PC.KERNEL_ENTRY_POINTS) - set(smoke.UNLAUNCHED)
+    assert set(smoke.LARGE_MSM_KERNELS) == {"msm_pippenger"}
     assert set(smoke.PLONK_BATCH_KERNELS) == {"msm_affine", "miller_mixed", "final_exp"}

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: with JAX and the JAX package
 (``snark_bn254_verifier_tpu``) both blocked, importing it, building a CPU
 batch verifier from its own fixtures, importing the single-proof facades,
-building a CPU TorchBackend and importing chip_smoke all work, and no file
-of the package or chip_smoke.py imports either of them."""
+the large MSM and the sharded layer, building a CPU TorchBackend and
+importing chip_smoke all work, and no file of the package or chip_smoke.py
+imports either of them."""
 
 import os
 import re
@@ -32,6 +33,9 @@ ver.line_tables()
 from snark_bn254_verifier_tpu_torch import Groth16Verifier, PlonkVerifier, TorchBackend
 from snark_bn254_verifier_tpu_torch import examples
 from snark_bn254_verifier_tpu_torch.models.backend import get_backend
+from snark_bn254_verifier_tpu_torch.ops import msm
+from snark_bn254_verifier_tpu_torch.parallel import sharded
+assert msm.PIPPENGER_THRESHOLD == 64 and callable(sharded.sharded_msm)
 backend = TorchBackend("cpu")
 assert get_backend(backend) is backend
 assert backend.msm([], []) is None

@@ -157,18 +157,19 @@ def test_same_vector_as_jax_batch_verifier(lanes, monkeypatch):
     same rng: equal bools, and equal phase-A digests limb for limb."""
     vec, proofs, inputs, expected = lanes
     seen = {}
-    jax_unpack, port_unpack = jax_batch._unpack_affine, batch.unpack_g1
+    jax_unpack, port_unpack = jax_batch._unpack_affine, batch.unpack_g1_rows
 
     def jax_rec(aff):
         seen["jax"] = [np.asarray(a)[..., :len(proofs)].astype(np.int64) for a in aff]
         return jax_unpack(aff)
 
-    def port_rec(x, y, inf):
-        seen["port"] = [t.cpu().numpy().astype(np.int64) for t in (x, y, inf)]
-        return port_unpack(x, y, inf)
+    def port_rec(rows):  # the digests stacked as (x, y, inf) rows, (33, B)
+        seen["port"] = [rows[:16].astype(np.int64), rows[16:32].astype(np.int64),
+                        rows[32].astype(np.int64)]
+        return port_unpack(rows)
 
     monkeypatch.setattr(jax_batch, "_unpack_affine", jax_rec)
-    monkeypatch.setattr(batch, "unpack_g1", port_rec)
+    monkeypatch.setattr(batch, "unpack_g1_rows", port_rec)
     jax_ok = np.asarray(jax_batch.PlonkBatchVerifier(vec.vk).verify_batch(
         proofs, inputs, rng=seeded_rng(7)))
     ok = PlonkBatchVerifier(vec.vk, device="cpu").verify_batch(proofs, inputs,
