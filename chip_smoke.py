@@ -47,10 +47,20 @@ It builds the port's CUDA kernels from csrc/, then
      and splits one call into its primitives;
   5. drives the large MSM: ``TorchBackend.msm`` at 80 points and
      ``sharded_msm`` on 2^16 points over a world-size-1 NCCL group, both
-     through K6 and exact against the closed form, and times the latter.
+     through K6 and exact against the closed form, and times the latter;
+  6. runs the port's bench (snark_bn254_verifier_tpu_torch/bench.py) in
+     process at its smoke sizes (batch 32, 2 iterations, 2^10 MSM points,
+     4 single calls), every config but ``scaling`` (a process a card,
+     which the bench's own run measures; its launches are not this
+     process's): every
+     line without error, on cuda, under the JAX bench's metric name;
+     kernel_validation covering every KERNEL_ENTRY_POINTS entry; the
+     Groth16 batch launching its four kernels and the MSM K6.
 
-Each path's launch counts are set to 0 just before it is driven and read
-just after; together the paths must launch every kernel but K1's
+Each path's launch counts (each bench config's too, but
+kernel_validation's, which are comparison launches) are set to 0 just
+before it is driven and read just after; together the paths must launch
+every kernel but K1's
 elementwise form, mont_mul, which no path launches (it is still checked
 and timed); the large MSM must launch K6. It imports
 neither JAX nor the JAX package. It prints the card's name and power
@@ -70,6 +80,10 @@ import subprocess
 import sys
 import time
 
+# The card's model (peaks, products a Montgomery multiply, bounds) is the
+# port's utils/roofline.py, which the bench's roofline fields use too.
+from snark_bn254_verifier_tpu_torch.utils.roofline import bound, count_fp_muls
+
 BATCH = 1024  # proofs per batch, the batch the repo's bench verifies
 ITERS = 3     # warm slice runs timed
 SINGLE_ITERS = 10  # warm single-proof calls timed, per protocol
@@ -81,14 +95,6 @@ SOURCE = {"mont_mul": CSRC + "fp.cuh", "g2_on_curve": CSRC + "curve.cuh",
           "miller_product": CSRC + "team.cuh", "msm_pippenger": CSRC + "pippenger.cuh"}
 # run on a team of threads per lane
 TEAM_KERNELS = ("msm_affine", "miller_mixed", "final_exp", "miller_product")
-# The card's peaks for the bounds (NVIDIA's H100 SXM data sheet, and the
-# CUDA Programming Guide's throughput table for compute capability 9.0: 64
-# 32-bit integer multiply-adds per clock per SM, 132 SMs, 1.98 GHz boost).
-HBM_BYTES_PER_S = 3.35e12
-IMAD_PER_S = 64 * 132 * 1.98e9
-# CIOS on 8 x 32-bit limbs (csrc/fp.cuh::fp_mul): 64 a_i b_j and 64 m p_j
-# wide products, each a lo and a hi multiply-add, and 8 m = t0 n0' products
-IMAD_PER_FP_MUL = 2 * (64 + 64) + 8
 PALLAS = "snark_bn254_verifier_tpu/ops/"
 # kernel -> (TPU kernels it replaces, file:line); the first is "replaces"
 REPLACES = {
@@ -163,39 +169,6 @@ def time_plain(fn, warm_up=True):
 
 def max_abs_err(a, b) -> int:
     return int((a.to(dtype=b.dtype) - b).abs().max().item()) if a.numel() else 0
-
-
-def count_fp_muls(fn) -> int:
-    """Montgomery products the plain twin makes in fn() on CPU tensors:
-    the work of the per-lane formulas, which the kernels share (K3 and K4
-    compute more products than that on their teams; the bound counts what
-    the function needs)."""
-    from snark_bn254_verifier_tpu_torch.ops import field as F
-
-    real, count = F.mont_mul, [0]
-
-    def counting(spec, a, b):
-        out = real(spec, a, b)
-        count[0] += out[0].numel()
-        return out
-
-    F.mont_mul = counting
-    try:
-        fn()
-    finally:
-        F.mont_mul = real
-    return count[0]
-
-
-def bound(fp_muls: int, nbytes: int) -> dict:
-    """The least time the card could take for ``fp_muls`` Montgomery
-    products reading and writing ``nbytes``: the larger of integer
-    multiply-add issue and device memory."""
-    ops_ms = fp_muls * IMAD_PER_FP_MUL / IMAD_PER_S * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return {"bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "fp_muls": fp_muls, "imads": fp_muls * IMAD_PER_FP_MUL, "bytes": nbytes}
 
 
 def lane_cpu(args, lane):
@@ -1072,14 +1045,6 @@ def run_plonk_batch(batch: int, iters: int):
     return launches, piped
 
 
-def free_port() -> int:
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
-
-
 def run_large_msm(iters: int):
     """The large MSM through its entry points: TorchBackend.msm at 80
     points (K6 through msm_best, against the oracle), then sharded_msm on
@@ -1096,8 +1061,8 @@ def run_large_msm(iters: int):
     from snark_bn254_verifier_tpu_torch.fixtures.msm_lanes import trapdoor_msm
     from snark_bn254_verifier_tpu_torch.models.packing import unpack_g1
     from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
-    from snark_bn254_verifier_tpu_torch.parallel.sharded import (init_distributed, make_mesh,
-                                                                 sharded_msm)
+    from snark_bn254_verifier_tpu_torch.parallel.sharded import (free_port, init_distributed,
+                                                                 make_mesh, sharded_msm)
 
     pts, scs, expected80 = trapdoor_msm(80, MSM_SEED)
     points, scal, expected = trapdoor_inputs(MSM_N)
@@ -1125,6 +1090,51 @@ def run_large_msm(iters: int):
     print(f"large MSM: TorchBackend.msm at 80 points and sharded_msm at 2^16 on a "
           f"world-size-1 NCCL group exact; launches {launches}; sharded_msm wall clock over "
           f"{iters} calls: median {statistics.median(times):.3f} ms, best {min(times):.3f} ms")
+    return launches
+
+
+# The port's bench at its --smoke sizes; ``scaling`` starts a process a card
+# and is left to the bench's own run.
+BENCH_SMOKE = {"batch_size": 32, "iters": 2, "log2n": 10}
+# the JAX bench's metric names (bench.py), at 2^10 MSM points
+JAX_BENCH_METRICS = {
+    "groth16_batch": "groth16_batched_verify_throughput",
+    "plonk_batch": "plonk_batched_verify_throughput",
+    "msm": "msm_2e10_sharded_wallclock",
+    "mixed": "mixed_groth16_plonk_throughput",
+    "groth16_single": "groth16_single_verify_latency",
+    "plonk_single": "plonk_single_verify_latency",
+    "kernel_validation": "kernel_validation",  # the JAX bench's pallas_validation
+}
+BENCH_KERNELS = {"groth16_batch": SLICE_KERNELS, "msm": LARGE_MSM_KERNELS}
+
+
+def run_bench():
+    """The port's bench in process on the card at its smoke sizes: each
+    config but ``scaling`` through ``bench.RUNNERS``, its launches counted
+    from 0. Returns the launches of every config but kernel_validation."""
+    from snark_bn254_verifier_tpu_torch import bench
+    from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
+
+    run = bench.Run(device="cuda", card=bench.card_fields("cuda"), **BENCH_SMOKE)
+    require([c for c in bench.ORDER if c != "scaling"] == list(JAX_BENCH_METRICS),
+            "the bench's configs changed")
+    launches = {}
+    for name, metric in JAX_BENCH_METRICS.items():
+        PC.reset_launch_counts()
+        line = bench.RUNNERS[name](run)
+        launches[name] = PC.launch_counts()
+        print("bench " + json.dumps(line))
+        require("error" not in line and line["platform"] == "cuda" and line["metric"] == metric,
+                f"bench {name}: {line}")
+        if name == "kernel_validation":
+            covered = set().union(*bench.KERNEL_VALIDATION_COVERAGE.values())
+            require(line["value"] == 1 and covered == set(PC.KERNEL_ENTRY_POINTS),
+                    f"bench kernel_validation: {line['stages']}")
+    for name, kernels in BENCH_KERNELS.items():
+        require(all(launches[name][k] for k in kernels),
+                f"bench {name} launched {launches[name]}, not all of {kernels}")
+    del launches["kernel_validation"]  # comparison launches, not a path's
     return launches
 
 
@@ -1329,13 +1339,15 @@ def main() -> int:
     plonk_launches, plonk_piped = run_plonk_batch(BATCH, ITERS)
     single_launches, per_call = run_single(SINGLE_ITERS)
     msm_launches = run_large_msm(ITERS)
+    bench_launches = run_bench()
     per_call["slice"] = slice_launches  # one call of verify_batch
     per_call["plonk_batch"] = plonk_launches  # one call of PlonkBatchVerifier.verify_batch
     per_call["slice_pipelined"] = slice_piped  # PIPELINED calls of verify_batch_async
     per_call["plonk_pipelined"] = plonk_piped
     per_call["large_msm"] = msm_launches  # TorchBackend.msm (80 points) + sharded_msm (2^16)
+    per_call.update({f"bench_{name}": n for name, n in bench_launches.items()})
     paths = (slice_launches, plonk_launches, single_launches, msm_launches, slice_piped,
-             plonk_piped)
+             plonk_piped, *bench_launches.values())
     launches = {name: sum(p[name] for p in paths) for name in PC.KERNEL_ENTRY_POINTS}
     require(set(SLICE_KERNELS) | set(PLONK_BATCH_KERNELS) | set(SINGLE_KERNELS)
             | set(LARGE_MSM_KERNELS) == set(PC.KERNEL_ENTRY_POINTS) - set(UNLAUNCHED),

@@ -18,16 +18,24 @@ parser in csrc/host/), in the JAX package's structure and names.
     ok = PlonkBatchVerifier(vk_bytes, device="cuda").verify_batch(proofs, inputs)
 
 Every entry point defaults to ``device="cuda"`` and raises where there is
-no card. On a CUDA device the paths run through the port's hand-written
+no card; the facades run on the default backend, ``torch`` on the card,
+unless given a ``device`` (``set_default_backend`` changes the default,
+``get_backend("oracle")`` is the pure-Python one). On a CUDA device the
+paths run through the port's hand-written
 kernels (csrc/, built by nvcc on first use); with ``device="cpu"`` they
 run their plain PyTorch twins.
 """
 
-from .models.groth16 import Groth16Verifier
-from .models.plonk import PlonkVerifier
+from .models.backend import get_backend, set_default_backend
+from .models.groth16 import Groth16Verifier, PreparedVerifyingKey, verify_groth16
+from .models.plonk import PlonkVerifier, verify_plonk
 from .models.torch_backend import TorchBackend
 from .ops.pairing_cuda import KERNEL_ENTRY_POINTS
 from .parallel.batch import Groth16BatchVerifier, PlonkBatchVerifier
+from .utils import errors
 
 __all__ = ["Groth16BatchVerifier", "Groth16Verifier", "KERNEL_ENTRY_POINTS",
-           "PlonkBatchVerifier", "PlonkVerifier", "TorchBackend"]
+           "PlonkBatchVerifier", "PlonkVerifier", "PreparedVerifyingKey", "TorchBackend",
+           "errors", "get_backend", "set_default_backend", "verify_groth16", "verify_plonk"]
+
+__version__ = "0.1.0"

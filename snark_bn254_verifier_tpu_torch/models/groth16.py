@@ -32,8 +32,7 @@ from typing import Optional, Sequence
 
 from ..oracle import bn254 as bn
 from ..utils import errors, serialization as ser
-from .backend import get_backend
-from .torch_backend import TorchBackend
+from .backend import facade_backend, get_backend
 
 
 def prepare_inputs(vk: ser.Groth16VerifyingKey, public_inputs: Sequence[int], backend=None):
@@ -99,8 +98,11 @@ class Groth16Verifier:
     _cache: dict = {}
 
     @staticmethod
-    def verify(proof: bytes, vk: bytes, public_inputs: Sequence[int], device="cuda") -> bool:
-        backend = TorchBackend(device)
+    def verify(proof: bytes, vk: bytes, public_inputs: Sequence[int], device=None) -> bool:
+        """On the torch backend of ``device`` ("cuda" or "cpu") where one
+        is named, else on the default backend (models/backend.py): the
+        card unless ``set_default_backend`` changed it."""
+        backend = facade_backend(device)
         key = hashlib.sha256(vk).digest()
         ent = Groth16Verifier._cache.get(key)
         if ent is None:

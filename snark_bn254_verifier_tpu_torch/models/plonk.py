@@ -29,8 +29,7 @@ from ..utils import serialization as ser
 from ..utils.hash_to_field import WrappedHashToField
 from ..utils.transcript import ALPHA, BETA, GAMMA, ZETA, Transcript
 from . import kzg
-from .backend import get_backend
-from .torch_backend import TorchBackend
+from .backend import facade_backend, get_backend
 
 R = bn.R
 
@@ -234,8 +233,11 @@ class PlonkVerifier:
     _vk_cache: dict = {}
 
     @staticmethod
-    def verify(proof: bytes, vk: bytes, public_inputs: Sequence[int], device="cuda") -> bool:
-        backend = TorchBackend(device)
+    def verify(proof: bytes, vk: bytes, public_inputs: Sequence[int], device=None) -> bool:
+        """On the torch backend of ``device`` ("cuda" or "cpu") where one
+        is named, else on the default backend (models/backend.py): the
+        card unless ``set_default_backend`` changed it."""
+        backend = facade_backend(device)
         key = hashlib.sha256(vk).digest()
         vk_obj = PlonkVerifier._vk_cache.get(key)
         if vk_obj is None:

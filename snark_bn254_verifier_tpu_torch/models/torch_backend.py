@@ -10,9 +10,14 @@ to the host:
   msm, g1_mul            ops/msm.py::msm_best at batch one (a point per
                          row): kernel K6 (Pippenger) at 64 points or more,
                          else kernel K2
-  pairing, pairing_batch kernel K5 over the pairs, then kernel K4
+  pairing, pairing_batch ops/pairing_cuda.py::pairing_batch: kernel K5
+                         over the pairs, then kernel K4
   pairing_batch_is_one   the same, compared with one on the device; one
                          bool comes back
+
+``TorchBackend.instance(device)`` is the one backend a device that
+``get_backend("torch")`` (models/backend.py) hands out, as the JAX
+package's ``JaxBackend.instance()``.
 
 On a CUDA device every primitive goes through its kernels; a CPU device
 runs their plain twins. The MSM switches to Pippenger at
@@ -26,7 +31,6 @@ import torch
 
 from ..ops import msm as M
 from ..ops import pairing_cuda as PC
-from ..ops import tower as T
 from .packing import pack_g1, pack_g2, pack_msm, pair_major, unpack_fq12, unpack_g1
 
 
@@ -43,9 +47,19 @@ class TorchBackend:
     """Device-compute backend on one torch device ("cpu" or "cuda")."""
 
     name = "torch"
+    _instances: dict = {}
 
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
+
+    @classmethod
+    def instance(cls, device="cuda") -> "TorchBackend":
+        """The shared backend of ``device``, made on first use (which
+        raises for "cuda" where there is no card)."""
+        key = str(device)
+        if key not in cls._instances:
+            cls._instances[key] = cls(device)
+        return cls._instances[key]
 
     def _to_dev(self, arrays) -> tuple:
         return tuple(torch.as_tensor(a, device=self.device) for a in arrays)
@@ -67,18 +81,16 @@ class TorchBackend:
 
     # -- pairings -----------------------------------------------------------
 
-    def _gt(self, pairs) -> torch.Tensor:
-        """prod e(P_i, Q_i) as a (16, 12, 1) device tensor."""
-        ps = self._to_dev(pair_major(pack_g1, [[p] for p, _ in pairs]))
-        qs = self._to_dev(pair_major(pack_g2, [[q] for _, q in pairs]))
-        return PC.final_exp(PC.miller_product(ps, qs))
+    def _pairs(self, pairs) -> tuple:
+        """The pairs as pair-major (P, Q) tensors at batch one."""
+        return (self._to_dev(pair_major(pack_g1, [[p] for p, _ in pairs])),
+                self._to_dev(pair_major(pack_g2, [[q] for _, q in pairs])))
 
     def pairing(self, p, q):
         return self.pairing_batch([(p, q)])
 
     def pairing_batch(self, pairs):
-        return unpack_fq12(self._gt(pairs).cpu().numpy())[0]
+        return unpack_fq12(PC.pairing_batch(*self._pairs(pairs)).cpu().numpy())[0]
 
     def pairing_batch_is_one(self, pairs):
-        gt = self._gt(pairs)
-        return bool(T.fq12_eq(gt, T.fq12_one(gt.shape[2:], gt))[0].item())
+        return bool(PC.pairing_batch_is_one(*self._pairs(pairs))[0].item())

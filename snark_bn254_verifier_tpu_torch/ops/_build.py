@@ -24,12 +24,13 @@ from dataclasses import dataclass
 from pathlib import Path
 
 from ..oracle import bn254 as bn
+from ..utils.config import VerifierConfig
 from .limbs import FQ, FR, int_to_words
 from .lines import MILLER_BITS
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC = PKG_DIR / "csrc"
-BUILD_DIR = PKG_DIR / "_build"
+BUILD_DIR = Path(VerifierConfig().cache_dir).resolve()
 CONSTS_HEADER = "bn254_consts.h"
 CUDA_ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 STACK_BYTES = 16384  # per-thread stack for the __noinline__ call chain of K4's Fq12 inverse

@@ -19,6 +19,9 @@ what the port's verifiers run:
     axis (pairing.py:187-234, :406-427 there); the single-proof backend's
     pairings. Plain twin of kernel K5, limb-equal to the JAX package's
     ``miller_product_jit``.
+  * ``pairing``, ``pairing_batch`` and ``pairing_batch_is_one`` (pairing.py:
+    586-600 there) — whole pairings from the two twins above.
+    ops/pairing_cuda.py has the same three over the kernels' wrappers.
 
 All values are (16, C, *batch) limb tensors (see ops/tower.py).
 """
@@ -318,3 +321,28 @@ def final_exponentiation(f):
 def final_exp(f):
     """Plain twin of kernel K4: (16, 12, *b) int32 -> int32."""
     return final_exponentiation(f).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Whole pairings
+# ---------------------------------------------------------------------------
+
+
+def pairing(p_affine, q_affine):
+    """e(P, Q) per lane: P (x (16,*b), y, inf (*b)), Q with Fq2 coordinates
+    (16,2,*b); (16, 12, *b) int32."""
+    return pairing_batch(tuple(t.unsqueeze(0) for t in p_affine),
+                         tuple(t.unsqueeze(0) for t in q_affine))
+
+
+def pairing_batch(pairs_p, pairs_q):
+    """The product of n pairings per lane, one shared final exponentiation:
+    pair-major P (x (n,16,*b), y, inf (n,*b)) and Q (n,16,2,*b) coordinates
+    -> (16, 12, *b) int32."""
+    return final_exp(miller_product(pairs_p, pairs_q))
+
+
+def pairing_batch_is_one(pairs_p, pairs_q):
+    """(*b) bool: the product of the pairings is one."""
+    gt = pairing_batch(pairs_p, pairs_q)
+    return T.fq12_eq(gt, T.fq12_one(gt.shape[2:], gt))

@@ -16,6 +16,9 @@ package's parallel/batch.py):
                   JAX package (ops/msm.py::msm_pippenger), with no Pallas
                   original
 
+and, over K5 and K4, the whole pairings ``pairing``, ``pairing_batch``
+and ``pairing_batch_is_one`` of ops/pairing.py.
+
 Each wrapper sends a CPU tensor to its plain twin and a CUDA tensor to
 its kernel, checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on its tensors' device and that
@@ -33,6 +36,7 @@ import torch
 from . import curve as C
 from . import msm as M
 from . import pairing as PR
+from . import tower as T
 from .field_cuda import launch, mont_mul
 from .lines import STEPS
 from .limbs import NUM_LIMBS
@@ -274,3 +278,20 @@ msm_pippenger.launches = 0
 __all__ = ["KERNEL_ENTRY_POINTS", "mont_mul", "g2_on_curve", "msm_affine", "miller_mixed",
            "final_exp", "miller_product", "msm_pippenger", "launch_counts",
            "reset_launch_counts"]
+
+
+def pairing(p_affine, q_affine):
+    """ops/pairing.py::pairing over K5 and K4."""
+    return pairing_batch(tuple(t.unsqueeze(0) for t in p_affine),
+                         tuple(t.unsqueeze(0) for t in q_affine))
+
+
+def pairing_batch(pairs_p, pairs_q):
+    """ops/pairing.py::pairing_batch: K5 over the pairs, then K4."""
+    return final_exp(miller_product(pairs_p, pairs_q))
+
+
+def pairing_batch_is_one(pairs_p, pairs_q):
+    """ops/pairing.py::pairing_batch_is_one over K5 and K4."""
+    gt = pairing_batch(pairs_p, pairs_q)
+    return T.fq12_eq(gt, T.fq12_one(gt.shape[2:], gt))

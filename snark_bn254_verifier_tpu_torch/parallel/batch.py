@@ -141,6 +141,12 @@ class _Stages:
             out[stage] += a.elapsed_time(b)
         return out
 
+    def host_ms(self) -> dict:
+        """The stages that need no wait for the card: the host laps (on
+        the CPU every stage)."""
+        on_card = {stage for stage, _, _ in self.spans}
+        return {k: v for k, v in self.total.items() if k not in on_card}
+
     def elapsed_s(self) -> float:
         return time.perf_counter() - self.start
 
@@ -319,19 +325,11 @@ class Groth16BatchVerifier(_Flights):
         """One bool per proof: True where the proof verifies.
         ``verify_batch_async`` plus one copy to the host; fills
         ``last_stats`` (``extra["stage_ms"]``: host stages by host laps,
-        device stages by CUDA events on CUDA)."""
+        device stages by CUDA events on CUDA; ``extra["host_s"]``: the
+        host stages' seconds)."""
         run = self._dispatch(proofs, public_inputs)
         ok = run.on_host()
-        self.last_stats = RunStats(
-            protocol="groth16",
-            batch_size=len(proofs),
-            n_chips=1,
-            elapsed_s=run.stages.elapsed_s(),
-            n_valid=int(ok.sum()),
-            pairings_per_proof=3,  # e(A,B) e(L,gamma) e(C,-delta) vs e(alpha,beta)
-            extra={"device": str(self.device), **run.extra, "packer": packer(),
-                   "stage_ms": run.stages.ms()},
-        )
+        self.last_stats = self._stats(run, len(proofs), int(ok.sum()), run.stages.ms())
         return ok
 
     def verify_batch_async(self, proofs: Sequence[bytes],
@@ -339,8 +337,25 @@ class Groth16BatchVerifier(_Flights):
         """The (B,) bool tensor of ``verify_batch`` on the verifier's
         device, returned without waiting for the card: on CUDA the batch
         runs on a stream of its own, and the caller's current stream waits
-        for it, so ``.cpu()`` (or any work queued there) sees the result."""
-        return self._dispatch(proofs, public_inputs).handed_over()
+        for it, so ``.cpu()`` (or any work queued there) sees the result.
+        Fills ``last_stats`` with what is known without that wait: the
+        host stages, ``elapsed_s`` the call's host time, ``n_valid`` None."""
+        run = self._dispatch(proofs, public_inputs)
+        self.last_stats = self._stats(run, len(proofs), None, run.stages.host_ms())
+        return run.handed_over()
+
+    def _stats(self, run: _Run, b: int, n_valid: Optional[int], ms: dict) -> RunStats:
+        return RunStats(
+            protocol="groth16",
+            batch_size=b,
+            n_chips=1,
+            elapsed_s=run.stages.elapsed_s(),
+            n_valid=n_valid,
+            pairings_per_proof=3,  # e(A,B) e(L,gamma) e(C,-delta) vs e(alpha,beta)
+            extra={"device": str(self.device), **run.extra, "packer": packer(),
+                   "stage_ms": ms,
+                   "host_s": sum(ms.get(k, 0.0) for k in ("parse_ms", "pack_ms")) / 1e3},
+        )
 
     def _dispatch(self, proofs: Sequence[bytes],
                   public_inputs: Sequence[Sequence[int]]) -> _Run:
@@ -539,7 +554,7 @@ class PlonkBatchVerifier(_Flights):
         the host; fills ``last_stats`` (stage times as Groth16's)."""
         run = self._dispatch(proofs, public_inputs, rng)
         ok = run.on_host()
-        self.last_stats = self._stats(len(proofs), int(ok.sum()), run.stages)
+        self.last_stats = self._stats(len(proofs), int(ok.sum()), run.stages, run.stages.ms())
         return ok
 
     def verify_batch_async(self, proofs: Sequence[bytes],
@@ -547,8 +562,12 @@ class PlonkBatchVerifier(_Flights):
         """The (B,) bool tensor of ``verify_batch`` on the verifier's
         device. It waits for the card once, for the phase-A digests that
         the KZG fold challenge binds; phase B is left in flight on the
-        batch's stream, which the caller's current stream waits for."""
-        return self._dispatch(proofs, public_inputs, rng).handed_over()
+        batch's stream, which the caller's current stream waits for.
+        Fills ``last_stats`` as Groth16's does (every host stage is known
+        by then)."""
+        run = self._dispatch(proofs, public_inputs, rng)
+        self.last_stats = self._stats(len(proofs), None, run.stages, run.stages.host_ms())
+        return run.handed_over()
 
     def _dispatch(self, proofs: Sequence[bytes], public_inputs: Sequence[Sequence[int]],
                   rng) -> _Run:
@@ -655,9 +674,8 @@ class PlonkBatchVerifier(_Flights):
                               self._one, tvalid, stages.device)
         return _Run(ok, stages, slot)
 
-    def _stats(self, b: int, n_valid: int, stages: _Stages) -> RunStats:
+    def _stats(self, b: int, n_valid: Optional[int], stages: _Stages, ms: dict) -> RunStats:
         host = ("parse_ms", "host_a_ms", "pack_a_ms", "host_b_ms", "pack_b_ms")
-        ms = stages.ms()
         return RunStats(
             protocol="plonk",
             batch_size=b,

@@ -28,6 +28,15 @@ from ..ops import msm as M
 from ..ops import pairing_cuda as PC
 
 
+def free_port() -> int:
+    """A free TCP port on this host, for ``init_method="tcp://localhost:<port>"``."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
 def init_distributed(backend: Optional[str] = None, init_method: Optional[str] = None,
                      world_size: Optional[int] = None, rank: Optional[int] = None,
                      device="cuda") -> None:

@@ -1,8 +1,10 @@
 """The PyTorch port stands alone: with JAX and the JAX package
 (``snark_bn254_verifier_tpu``) both blocked, importing it, building a CPU
 batch verifier from its own fixtures, importing the single-proof facades,
-the large MSM and the sharded layer, building a CPU TorchBackend and
-importing chip_smoke all work, and no file of the package or chip_smoke.py
+the large MSM and the sharded layer, building a CPU TorchBackend,
+importing chip_smoke, and importing the bench and its tooling (bench,
+weak_scaling, utils/{roofline,config,profiling}, fixtures/extract_vk;
+the roofline counts on the twins) all work, and no file of the package or chip_smoke.py
 imports either of them."""
 
 import os
@@ -41,6 +43,13 @@ assert get_backend(backend) is backend
 assert backend.msm([], []) is None
 import chip_smoke
 assert set(chip_smoke.KERNEL_PHASES) == set(port.KERNEL_ENTRY_POINTS)
+from snark_bn254_verifier_tpu_torch import bench, weak_scaling
+from snark_bn254_verifier_tpu_torch.utils import config, profiling, roofline
+from snark_bn254_verifier_tpu_torch.fixtures import extract_vk
+assert roofline.groth16_mults_per_proof(2) == 50866
+assert callable(profiling.trace) and config.VerifierConfig().batch_size == 256
+assert callable(extract_vk.extract) and callable(weak_scaling.run)
+assert set(bench.RUNNERS) == set(bench.ORDER) and port.get_backend("oracle").name == "oracle"
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("no-jax ok")
 """
