@@ -19,9 +19,11 @@ It builds the port's CUDA kernels from csrc/, then
      and 2 pairs) at batch one, the single-proof path's shapes, exact
      against their twins and timed on those inputs; K6 (the bucket MSM)
      exact against its twin, K2 and the oracle at 256 points, against the
-     closed form at 2^16 points, timed there, and K2 against K6 around
-     msm_best's switch; and computes each kernel's bound from the work its
-     twin counts;
+     closed form at 2^16 points, timed there whole and stage by stage
+     (CUDA events) and at each chunk length of PIP_CHUNKS, its halves (the
+     window sums, then the combine) exact, and K2 against K6 on both
+     sides of msm_best's switch; and computes each kernel's bound from the
+     work its twin counts;
   2. drives the batched Groth16 path, ``Groth16BatchVerifier(vk,
      device="cuda")`` on a batch of 1024 proofs of the bench vector with
      bad lanes at fixed positions, checks the exact bool vector and that
@@ -45,9 +47,10 @@ It builds the port's CUDA kernels from csrc/, then
      each result or exception must equal the oracle backend's, and its
      kernels (K2, K4, K5) must have been launched; then times warm calls
      and splits one call into its primitives;
-  5. drives the large MSM: ``TorchBackend.msm`` at 80 points and
-     ``sharded_msm`` on 2^16 points over a world-size-1 NCCL group, both
-     through K6 and exact against the closed form, and times the latter;
+  5. drives the large MSM: ``TorchBackend.msm`` at 80 points (K6) and
+     ``sharded_msm`` on 2^16 points over a world-size-1 NCCL group (K6's
+     window sums, then its combine; no K2), both exact against the closed
+     form, and times the latter;
   6. runs the port's bench (snark_bn254_verifier_tpu_torch/bench.py) in
      process at its smoke sizes (batch 32, 2 iterations, 2^10 MSM points,
      4 single calls), every config but ``scaling`` (a process a card,
@@ -82,7 +85,7 @@ import time
 
 # The card's model (peaks, products a Montgomery multiply, bounds) is the
 # port's utils/roofline.py, which the bench's roofline fields use too.
-from snark_bn254_verifier_tpu_torch.utils.roofline import bound, count_fp_muls
+from snark_bn254_verifier_tpu_torch.utils.roofline import bound, count_fp_muls, pippenger_work
 
 BATCH = 1024  # proofs per batch, the batch the repo's bench verifies
 ITERS = 3     # warm slice runs timed
@@ -767,45 +770,43 @@ def trapdoor_inputs(n: int):
     return points, torch.as_tensor(sc, device="cuda"), expected
 
 
-def pippenger_work(points, scalars, c) -> int:
-    """Montgomery products the bucket MSM needs on these inputs, summed over
-    lanes: a mixed add per finite point of nonzero digit and window, the
-    running sums (two full adds a bucket and window), Horner (c doublings
-    and an add a window) and the affine conversion; each operation's
-    products counted on its plain formula (count_fp_muls)."""
-    import torch
+PIP_STAGES = ("digits", "sort", "buckets", "merge", "reduction")
+PIP_CHUNKS = (16, 32, 48, 64, 96, 128)  # the bucket stage's chunk lengths timed at 2^16
+# msm_best's switch, both sides timed: (points, lanes)
+SWITCH_SHAPES = ((16, 1), (32, 1), (64, 1), (128, 1), (256, 1), (4096, 1),
+                 (16, 32), (64, 32), (256, 32),
+                 (16, BATCH), (64, BATCH), (256, BATCH), (1024, BATCH))
 
-    from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
-    from snark_bn254_verifier_tpu_torch.models.packing import pack_g1
-    from snark_bn254_verifier_tpu_torch.ops import curve as C
-    from snark_bn254_verifier_tpu_torch.ops import msm as M
 
-    g1 = C.G1_OPS
-    x, y, inf = (torch.as_tensor(a) for a in pack_g1([bn.G1_GEN]))
-    x, y = x.to(torch.int64), y.to(torch.int64)
-    q = C.jacobian_double(g1, C.to_jacobian(g1, (x, y, inf)))  # 2G and 4G, Z != 1
-    r = C.jacobian_double(g1, q)
-    madd = count_fp_muls(lambda: C.jacobian_add_mixed(g1, q, (x, y, inf)))
-    add = count_fp_muls(lambda: C.jacobian_add(g1, q, r))
-    dbl = count_fp_muls(lambda: C.jacobian_double(g1, q))
-    affine = count_fp_muls(lambda: C.to_affine(g1, q))
-    digits, _, _ = M.bucket_order(points[2], scalars, c)
-    nonzero = int((digits != 0).sum().item())
-    w, b = M.windows(c), scalars.shape[-1]
-    per_lane = w * 2 * ((1 << c) - 1) * add + (w - 1) * (c * dbl + add) + affine
-    return nonzero * madd + b * per_lane
+def pippenger_attrs(lib) -> dict:
+    """Registers, stack bytes, threads a block and resident blocks an SM
+    of each K6 stage (cudaFuncGetAttributes, cudaOccupancy...)."""
+    import ctypes
+
+    from snark_bn254_verifier_tpu_torch.ops import _build
+
+    stages, comb = (ctypes.c_int * 20)(), (ctypes.c_int * 4)()
+    _build.check(lib, lib.bn_msm_pippenger_stage_attrs(stages), "bn_msm_pippenger_stage_attrs")
+    _build.check(lib, lib.bn_msm_pippenger_combine_attrs(comb), "bn_msm_pippenger_combine_attrs")
+    vals = list(stages) + list(comb)
+    return {stage: {"registers": vals[4 * i], "stack_bytes": vals[4 * i + 1],
+                    "threads_per_block": vals[4 * i + 2], "blocks_per_sm": vals[4 * i + 3]}
+            for i, stage in enumerate(PIP_STAGES + ("combine",))}
 
 
 def phase_msm_pippenger(ctx):
     """K6: exact against its plain twin, K2 and the oracle at N = 256 over
     four lanes with edge lanes (both timed there), and against the closed
-    form at N = 2^16, timed there with its bound; then K2 against K6
-    around msm_best's switch."""
+    form at N = 2^16, timed there with its bound, its stages timed apart
+    (CUDA events), each chunk length of PIP_CHUNKS exact and timed, and
+    its halves (window sums, then the combine) exact; then K2 against K6
+    at SWITCH_SHAPES, msm_best's switch."""
     import numpy as np
     import torch
 
     from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
     from snark_bn254_verifier_tpu_torch.models.packing import pack_g1, unpack_g1
+    from snark_bn254_verifier_tpu_torch.ops import _build
     from snark_bn254_verifier_tpu_torch.ops import msm as M
     from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
     from snark_bn254_verifier_tpu_torch.ops.limbs import limbs_batch_to_ints
@@ -843,28 +844,49 @@ def phase_msm_pippenger(ctx):
           f"{ms_256:.3f} ms, plain {plain_ms:.1f} ms")
 
     # N = 2^16 at batch one (the bench's trapdoor points): the closed form,
-    # then timed (the wrapper: digit sort and bounds, then both launches)
+    # then timed (all six launches), its stages apart, each chunk length
     points, scal, expected = trapdoor_inputs(MSM_N)
     PC.reset_launch_counts()
     got = PC.msm_pippenger(points, scal)
     require(PC.launch_counts()["msm_pippenger"] == 1, "msm_pippenger did not launch")
     require(unpack_g1(*got)[0] == expected, "msm_pippenger (N=2^16) != closed form")
     ms = time_kernel(lambda: PC.msm_pippenger(points, scal), 5)
-    glue_ms = time_kernel(lambda: M.bucket_order(points[2], scal, 8), 5)
+    ws = PC.msm_pippenger_windows(points, scal)
+    require(unpack_g1(*PC.msm_pippenger_combine(ws.unsqueeze(0)))[0] == expected,
+            "msm_pippenger_windows + msm_pippenger_combine (N=2^16) != closed form")
+    runs = []
+    for _ in range(5):
+        runs.append([])
+        PC.msm_pippenger_windows(points, scal, stage_ms=runs[-1])
+    stage_ms = {st: float(np.mean([r[i] for r in runs])) for i, st in enumerate(PIP_STAGES)}
+    stage_ms["combine"] = time_kernel(lambda: PC.msm_pippenger_combine(ws.unsqueeze(0)), 5)
+    chunk_ms = {}
+    for chunk in PIP_CHUNKS:
+        require(unpack_g1(*PC.msm_pippenger(points, scal, chunk=chunk))[0] == expected,
+                f"msm_pippenger (N=2^16, chunk {chunk}) != closed form")
+        chunk_ms[chunk] = time_kernel(lambda: PC.msm_pippenger(points, scal, chunk=chunk), 5)
     bnd = bound(pippenger_work(points, scal, 8), nbytes(*points, scal, *got))
-    print(f"K6 msm_pippenger N=2^16 B=1 c=8: exact vs closed form; {ms:.3f} ms "
-          f"(digit sort and bounds {glue_ms:.3f} ms), bound {bnd['bound_ms']:.4f} ms "
-          f"({bnd['bound_by']})")
-    out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "glue_ms": glue_ms,
+    stages = pippenger_attrs(_build.load_kernels().lib)
+    print(f"K6 msm_pippenger N=2^16 B=1 c=8: exact vs closed form; {ms:.3f} ms, bound "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); stages (CUDA events) "
+          + ", ".join(f"{k} {v:.4f}" for k, v in stage_ms.items()) + " ms; chunk "
+          + ", ".join(f"{k}: {v:.3f}" for k, v in chunk_ms.items()) + " ms")
+    for stage, a in stages.items():
+        print(f"K6 stage {stage}: {a['registers']} registers, {a['stack_bytes']} B stack, "
+              f"{a['threads_per_block']} threads a block, {a['blocks_per_sm']} resident "
+              f"blocks an SM")
+    out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "stage_ms": stage_ms,
+           "chunk": PC.PIPPENGER_CHUNK, "chunk_ms": chunk_ms, "stages": stages,
            "ms_n256_b4": ms_256, "shape": [MSM_N, 16, 1], "plain_shape": [n, 16, b], **bnd}
 
-    # K2 against K6 around the switch: n = 64, 256, 4096 at B = 1 (the
-    # trapdoor points), n = 64 at the batch; equal results, both timed
-    for n_pts, lanes in ((64, 1), (256, 1), (4096, 1), (64, ctx.batch)):
+    # K2 against K6 at msm_best's switch: the trapdoor points at B = 1,
+    # msm_inputs at the batch (zero scalars and points at infinity among
+    # them, the new edge shapes); equal results, both timed
+    for n_pts, lanes in SWITCH_SHAPES:
         if lanes == 1:
             args = (tuple(t[:n_pts] for t in points), scal[:n_pts])
         else:
-            args = on_card(*msm_inputs(ctx, n_pts, b=lanes))
+            args = on_card(*msm_inputs(ctx, n_pts, p_inf=0.05, p_zero=0.05, b=lanes))
         require(all(torch.equal(u, v) for u, v in zip(PC.msm_pippenger(*args),
                                                       PC.msm_affine(*args))),
                 f"K6 != K2 at n={n_pts} B={lanes}")
@@ -872,6 +894,12 @@ def phase_msm_pippenger(ctx):
         k2_ms = time_kernel(lambda: PC.msm_affine(*args), 3)
         out[f"k6_ms_n{n_pts}_b{lanes}"], out[f"k2_ms_n{n_pts}_b{lanes}"] = k6_ms, k2_ms
         print(f"K2 vs K6 n={n_pts} B={lanes}: equal; K6 {k6_ms:.3f} ms, K2 {k2_ms:.3f} ms")
+        if (n_pts, lanes) == (64, ctx.batch):  # where K6's reduction sets its time
+            split = []
+            PC.msm_pippenger_windows(*args, stage_ms=split)
+            out["stage_ms_n64_batch"] = dict(zip(PIP_STAGES, split))
+            print("K6 n=64 at the batch, stages (CUDA events): "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in zip(PIP_STAGES, split)) + " ms")
     return out
 
 
@@ -1076,8 +1104,14 @@ def run_large_msm(iters: int):
         launches = PC.launch_counts()
         require(got80 == expected80, "TorchBackend.msm (80 points) != closed form")
         require(unpack_g1(*out)[0] == expected, "sharded_msm (2^16, world 1) != closed form")
-        require(launches["msm_pippenger"] == 2 and launches["msm_affine"] == 1,
-                f"large MSM launches {launches}: K6 twice (backend, shard), K2 once (the sum)")
+        require(launches["msm_pippenger"] == 3 and launches["msm_affine"] == 0,
+                f"large MSM launches {launches}: K6 three times (the backend's MSM; the "
+                f"shard's window sums and their combine), K2 never")
+        backend_ms = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            backend.msm(pts, scs)  # ends in a copy to the host
+            backend_ms.append((time.perf_counter() - t0) * 1e3)
         times = []
         for _ in range(iters):
             torch.cuda.synchronize()
@@ -1088,8 +1122,10 @@ def run_large_msm(iters: int):
     finally:
         dist.destroy_process_group()
     print(f"large MSM: TorchBackend.msm at 80 points and sharded_msm at 2^16 on a "
-          f"world-size-1 NCCL group exact; launches {launches}; sharded_msm wall clock over "
-          f"{iters} calls: median {statistics.median(times):.3f} ms, best {min(times):.3f} ms")
+          f"world-size-1 NCCL group exact; launches {launches}; TorchBackend.msm at 80 points "
+          f"over {iters} calls: median {statistics.median(backend_ms):.3f} ms; sharded_msm "
+          f"wall clock over {iters} calls: median {statistics.median(times):.3f} ms, best "
+          f"{min(times):.3f} ms")
     return launches
 
 

@@ -278,9 +278,13 @@ def bench_plonk_single(run: Run) -> dict:
 def bench_msm(run: Run) -> dict:
     """sharded_msm on 2^log2n trapdoor points (the JAX bench's data, seed
     11) over a world-size-1 group (NCCL on the card, gloo on the CPU),
-    exact against the closed form; host clock, synchronised."""
+    exact against the closed form; host clock, synchronised. Beside it
+    the bound of the bucket method's work on these inputs
+    (utils/roofline.py::pippenger_work), the kernel table's bound for K6."""
     import torch
     import torch.distributed as dist
+
+    from .utils import roofline as RL
 
     from .fixtures.msm_lanes import trapdoor_msm
     from .models.packing import pack_msm, unpack_g1
@@ -312,9 +316,13 @@ def bench_msm(run: Run) -> dict:
         if owner:
             dist.destroy_process_group()
     per_msm = statistics.fmean(times)
+    nbytes = sum(t.numel() * t.element_size() for t in (*points, scal, *out))
+    bnd = RL.bound(RL.pippenger_work(points, scal, run.msm_window_bits), nbytes)
     return run.line("msm", value=per_msm * 1e3, unit="ms", points=n,
                     window_bits=run.msm_window_bits, points_per_sec=n / per_msm, chips=1,
-                    iters=iters, median_ms=statistics.median(times) * 1e3, warmup_s=warm_s)
+                    iters=iters, median_ms=statistics.median(times) * 1e3, warmup_s=warm_s,
+                    fp_muls=bnd["fp_muls"], bound_ms=bnd["bound_ms"],
+                    bound_by=bnd["bound_by"])
 
 
 def bench_scaling(run: Run) -> dict:

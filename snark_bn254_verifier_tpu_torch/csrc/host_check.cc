@@ -3,7 +3,7 @@
 // the host, so the 16<->32-bit limb conversion, the CIOS and the
 // tower/curve/pairing formulas are checked without a card. K1 and its
 // fused form, the G2 on-curve mask, run lane by lane; the team kernels
-// (K2-K5) and K6's bucket launch run block by block, each thread of a block as a host thread,
+// (K2-K5) and K6's block stages run block by block, each thread of a block as a host thread,
 // meeting at a barrier wherever the card's threads meet at __syncthreads.
 // It is built twice, with each form of the Montgomery product
 // (BN_ROLLED_CIOS, fp.cuh), so each kernel's tests run the form its unit
@@ -15,21 +15,24 @@
 
 // Runs body(tid, block, smem) for every thread of the grid of a team
 // kernel over n lanes (team threads per lane, lpb lanes per block), one
-// block at a time.
+// block at a time: a block's threads are host threads, made once and
+// meeting at a barrier after each block (as a grid of one resident block).
 template <typename Body>
 static void host_team_grid(long long n, int team, int lpb, long long smem_bytes, Body body) {
   const int nthreads = team * lpb;
+  const long long blocks = (n + lpb - 1) / lpb;
   std::vector<uint32_t> smem(smem_bytes / 4 + 1);
-  for (long long block = 0; block * lpb < n; ++block) {
-    std::barrier<> bar(nthreads);
-    std::vector<std::thread> threads;
-    for (int tid = 0; tid < nthreads; ++tid)
-      threads.emplace_back([&, tid] {
-        team_barrier = &bar;
+  std::barrier<> bar(nthreads);
+  std::vector<std::thread> threads;
+  for (int tid = 0; tid < nthreads; ++tid)
+    threads.emplace_back([&, tid] {
+      team_barrier = &bar;
+      for (long long block = 0; block < blocks; ++block) {
         body(tid, block, smem.data());
-      });
-    for (auto& th : threads) th.join();
-  }
+        bar.arrive_and_wait();  // the block ends before the next reuses smem
+      }
+    });
+  for (auto& th : threads) th.join();
 }
 
 // x = x * y over (16, 12, n) Fq12 operands by team.cuh::team_mul, the Fq12
@@ -115,20 +118,85 @@ int host_msm_affine(const int32_t* px, const int32_t* py, const uint8_t* pinf,
   return 0;
 }
 
-// K6's two launches: a block of pip_threads(c) host threads per (lane,
-// window), then Horner lane by lane (pippenger.cuh).
-int host_msm_pippenger(const int32_t* px, const int32_t* py, const int32_t* order,
-                       const int32_t* starts, int npts, int c, int32_t* wsum, int32_t* ox,
-                       int32_t* oy, uint8_t* oinf, long long n) {
-  if (npts < 1 || c < 1 || c > 16) return 1;
-  host_team_grid(n * pip_windows(c), pip_threads(c), 1, pip_smem_bytes(c),
+// K6's stages (pippenger.cuh) on one scratch buffer laid out as on the
+// card: host_pip_layout gives its bytes and the regions' byte offsets
+// (digits, order, sdig, starts, counts, buckets, parts, flags), so a test
+// can read each stage's output. The sort and the reduction run block by
+// block (a host thread a card thread), the per-thread stages thread by
+// thread, the combine on teams of PIP_COMB_TEAM host threads.
+long long host_pip_layout(int npts, int c, long long n, int chunk, long long* off) {
+  pip_scratch s;
+  const long long bytes = pip_scratch_layout(&s, (char*)16, npts, c, n, chunk);
+  const void* regions[8] = {s.digits, s.order, s.sdig, s.starts, s.counts, s.buckets, s.parts,
+                            s.flags};
+  for (int i = 0; i < 8; ++i) off[i] = (const char*)regions[i] - (const char*)16;
+  return bytes;
+}
+
+static pip_scratch host_scratch(char* base, int npts, int c, long long n, int chunk) {
+  pip_scratch s;
+  pip_scratch_layout(&s, base, npts, c, n, chunk);
+  return s;
+}
+
+// Stages 1-2: the digits and their counting sort.
+int host_pip_sort(const int32_t* sc, const uint8_t* pinf, int npts, int c, int chunk,
+                  char* scratch, long long n) {
+  if (npts < 1 || c < 1 || c > 16 || chunk < 1) return 1;
+  const pip_scratch s = host_scratch(scratch, npts, c, n, chunk);
+  for (long long idx = 0; idx < n * npts; ++idx)
+    pip_digits_thread(idx, sc, pinf, npts, c, s.digits, n);
+  const int nt = pip_sort_threads(npts);
+  host_team_grid(n * pip_windows(c), nt, 1, pip_sort_smem_bytes(c, nt),
                  [&](int tid, long long block, uint32_t* smem) {
-                   pippenger_window_team(tid, block, (g1j*)smem, px, py, order, starts, npts, c,
-                                         (uint32_t*)wsum, n);
+                   pip_sort_team(tid, nt, block, smem, npts, c, s);
                  });
-  for (long long lane = 0; lane < n; ++lane)
-    pippenger_horner_lane(lane, (const uint32_t*)wsum, c, ox, oy, oinf, n);
   return 0;
+}
+
+// Stages 3-4: the chunks' bucket sums, then the merge of split runs.
+int host_pip_buckets(const int32_t* px, const int32_t* py, int npts, int c, int chunk,
+                     char* scratch, long long n) {
+  const pip_scratch s = host_scratch(scratch, npts, c, n, chunk);
+  const long long chunks = pip_chunks(npts, c, n, chunk);
+  for (long long k = 0; k < chunks; ++k) pip_chunk_thread(k, chunk, px, py, npts, c, s, n);
+  for (long long k = 0; k < chunks; ++k) pip_merge_thread(k, chunk, npts, c, s, n);
+  return 0;
+}
+
+// Stage 5: the window sums into wsum (n, W, 24 words).
+int host_pip_reduce(int npts, int c, int chunk, char* scratch, int32_t* wsum, long long n) {
+  const pip_scratch s = host_scratch(scratch, npts, c, n, chunk);
+  const long long rows = n * pip_windows(c);
+  const int nt = pip_threads(c, rows);
+  host_team_grid(rows, nt, 1, pip_smem_bytes(nt), [&](int tid, long long block, uint32_t* smem) {
+    pip_reduce_team(tid, nt, block, (g1j*)smem, npts, c, s, (uint32_t*)wsum);
+  });
+  return 0;
+}
+
+// Stage 6: the affine sum of k sets of window sums (k, n, W, 24 words).
+int host_pip_combine(const int32_t* wsum, int k, int c, int32_t* ox, int32_t* oy, uint8_t* oinf,
+                     long long n) {
+  if (k < 1 || c < 1 || c > 16) return 1;
+  // a team a block: the teams are independent, and a host block meets at
+  // one barrier wherever a card's warp does
+  host_team_grid(n, PIP_COMB_TEAM, 1, 4ll * PIP_XCH_WORDS,
+                 [&](int tid, long long lane, uint32_t* smem) {
+                   pip_combine_team(tid, lane, true, (fp*)smem, (const uint32_t*)wsum, k, c, ox,
+                                    oy, oinf, n);
+                 });
+  return 0;
+}
+
+// The whole MSM, as bn_msm_pippenger runs it on the card.
+int host_msm_pippenger(const int32_t* px, const int32_t* py, const uint8_t* pinf,
+                       const int32_t* sc, int npts, int c, int chunk, char* scratch,
+                       int32_t* wsum, int32_t* ox, int32_t* oy, uint8_t* oinf, long long n) {
+  if (host_pip_sort(sc, pinf, npts, c, chunk, scratch, n)) return 1;
+  host_pip_buckets(px, py, npts, c, chunk, scratch, n);
+  host_pip_reduce(npts, c, chunk, scratch, wsum, n);
+  return host_pip_combine(wsum, 1, c, ox, oy, oinf, n);
 }
 
 // K3, K4 and K5 at the kernels' shapes (team.cuh); K2's above (msm.cuh).

@@ -8,7 +8,7 @@ tensors on the backend's device, runs its kernels and makes one copy back
 to the host:
 
   msm, g1_mul            ops/msm.py::msm_best at batch one (a point per
-                         row): kernel K6 (Pippenger) at 64 points or more,
+                         row): kernel K6 (Pippenger) from 16 points,
                          else kernel K2
   pairing, pairing_batch ops/pairing_cuda.py::pairing_batch: kernel K5
                          over the pairs, then kernel K4
@@ -20,9 +20,9 @@ to the host:
 package's ``JaxBackend.instance()``.
 
 On a CUDA device every primitive goes through its kernels; a CPU device
-runs their plain twins. The MSM switches to Pippenger at
-ops/msm.py::PIPPENGER_THRESHOLD points, as the JAX backend does
-(jax_backend.py:113-124 there).
+runs their plain twins. The MSM switches to Pippenger by
+ops/msm.py::use_pippenger, measured on the card (the JAX backend switches
+at 64 points, jax_backend.py:113-124 there).
 """
 
 from __future__ import annotations

@@ -150,8 +150,10 @@ def team_unit(k: int) -> tuple:
 
 
 # One nvcc per compiled unit, all started together: (source, defines).
-# team_kernels.cu is built once per team kernel (K2-K5); pippenger.cu is K6.
-UNITS = [("kernels.cu", ())] + [team_unit(k) for k in (2, 3, 4, 5)] + [("pippenger.cu", ())]
+# team_kernels.cu is built once per team kernel (K2-K5); pippenger.cu is K6,
+# built twice: its stages 1-5 and its combine (pippenger.cu's head comment).
+UNITS = ([("kernels.cu", ())] + [team_unit(k) for k in (2, 3, 4, 5)]
+         + [("pippenger.cu", (f"-DBN_PIP_COMBINE={k}",)) for k in (0, 1)])
 OBJ_DIR = BUILD_DIR / "obj"
 
 
@@ -225,7 +227,9 @@ def bind_kernels(lib_path: Path) -> ctypes.CDLL:
         "bn_miller_mixed": [_P] * 6 + [_I, _P, _P, _P, _N, _P],
         "bn_final_exp": [_P, _P, _N, _P],
         "bn_miller_product": [_P] * 4 + [_I, _P, _N, _P],
-        "bn_msm_pippenger": [_P] * 4 + [_I, _I] + [_P] * 4 + [_N, _P],
+        "bn_msm_pippenger": [_P] * 4 + [_I, _I, _I] + [_P] * 5 + [_N, _P],
+        "bn_msm_pippenger_windows": [_P] * 4 + [_I, _I, _I, _P, _P, _N, _P, _P],
+        "bn_msm_pippenger_combine": [_P, _I, _I, _P, _P, _P, _N, _P],
         "bn_mont_mul_attrs": [_P],
         "bn_g2_on_curve_attrs": [_P],
         "bn_msm_affine_attrs": [_P],
@@ -233,10 +237,14 @@ def bind_kernels(lib_path: Path) -> ctypes.CDLL:
         "bn_final_exp_attrs": [_P],
         "bn_miller_product_attrs": [_P],
         "bn_msm_pippenger_attrs": [_P],
+        "bn_msm_pippenger_stage_attrs": [_P],
+        "bn_msm_pippenger_combine_attrs": [_P],
     }
     for fn, args in sigs.items():
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = _I
+    lib.bn_msm_pippenger_scratch_bytes.argtypes = [_I, _I, _N, _I]
+    lib.bn_msm_pippenger_scratch_bytes.restype = _N
     return lib
 
 
@@ -274,9 +282,16 @@ def load_host_check(rolled: bool = False) -> ctypes.CDLL:
     lib.host_miller_mixed.argtypes = [_P] * 6 + [_I, _P, _P, _P, _N]
     lib.host_final_exp.argtypes = [_P, _P, _N]
     lib.host_miller_product.argtypes = [_P] * 4 + [_I, _P, _N]
-    lib.host_msm_pippenger.argtypes = [_P] * 4 + [_I, _I] + [_P] * 4 + [_N]
+    lib.host_msm_pippenger.argtypes = [_P] * 4 + [_I, _I, _I] + [_P] * 5 + [_N]
+    lib.host_pip_layout.argtypes = [_I, _I, _N, _I, _P]
+    lib.host_pip_layout.restype = _N
+    lib.host_pip_sort.argtypes = [_P, _P, _I, _I, _I, _P, _N]
+    lib.host_pip_buckets.argtypes = [_P, _P, _I, _I, _I, _P, _N]
+    lib.host_pip_reduce.argtypes = [_I, _I, _I, _P, _P, _N]
+    lib.host_pip_combine.argtypes = [_P, _I, _I, _P, _P, _P, _N]
     for fn in ("host_mont_mul", "host_fq_inv", "host_g2_on_curve", "host_fq12_mul",
                "host_msm_affine", "host_miller_mixed", "host_final_exp",
-               "host_miller_product", "host_msm_pippenger"):
+               "host_miller_product", "host_msm_pippenger", "host_pip_sort",
+               "host_pip_buckets", "host_pip_reduce", "host_pip_combine"):
         getattr(lib, fn).restype = _I
     return lib

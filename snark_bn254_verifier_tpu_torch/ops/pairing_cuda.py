@@ -25,11 +25,17 @@ outputs with ``torch.empty``, launches on its tensors' device and that
 device's current stream, raises on a CUDA error and counts its launches
 in ``<wrapper>.launches``. No wrapper pads the batch: the kernels mask
 the ragged edge. g2_on_curve runs one thread per lane; K2-K5 run on a team of threads per lane, at the shapes
-csrc/msm.cuh (K2) and csrc/team.cuh (K3-K5) fix; K6 a block per (lane,
-window), then a thread per lane (csrc/pippenger.cuh).
+csrc/msm.cuh (K2) and csrc/team.cuh (K3-K5) fix; K6 is six launches
+(csrc/pippenger.cuh): a digit pass and a counting sort, the bucket sums
+over fixed chunks of all rows' entries, a thread a chunk, the merge of
+buckets split between chunks, a block per (lane, window) for the window
+sums, and a team of four threads per lane for the combine, which
+``msm_pippenger_combine`` also offers alone (for sharded_msm).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -37,6 +43,7 @@ from . import curve as C
 from . import msm as M
 from . import pairing as PR
 from . import tower as T
+from ._build import load_kernels
 from .field_cuda import launch, mont_mul
 from .lines import STEPS
 from .limbs import NUM_LIMBS
@@ -234,36 +241,107 @@ def miller_product(pairs_p, pairs_q):
     return out
 
 
-def msm_pippenger(points, scalars, c: int = 8):
-    """Per-lane bucket MSM sum_j scalars[j] * points[j] in affine form,
-    kernel K6 (two launches, counted as one call), for large point counts.
+# Entries a thread of K6's bucket stage (csrc/pippenger.cuh): the fastest of
+# chip_smoke.py's PIP_CHUNKS at 2^16 points on an H100 (PERF.md). Shorter
+# chunks pay more merges, longer ones leave SMs idle.
+PIPPENGER_CHUNK = 64
 
-    points and scalars as ``msm_affine``'s, c the window width (1..16).
-    The digits, their sort and the buckets' bounds are torch glue on the
-    card (ops/msm.py::bucket_order); the wrapper allocates the window
-    sums' scratch. Returns (x (16,B) int32, y (16,B) int32, inf (B,)
+
+def _pippenger_args(points, scalars, c: int, chunk: int):
+    """K6's checked inputs on the card: (px, py, pinf as bytes, scalars,
+    n, b, scratch), the scratch as bn_msm_pippenger_scratch_bytes says."""
+    px, py, pinf = points
+    n, _, b = px.shape
+    if n < 1:
+        raise ValueError("msm_pippenger: needs at least one point")
+    if chunk < 1:
+        raise ValueError(f"msm_pippenger: chunk={chunk} must be positive")
+    M.windows(c)  # raises outside 1..16
+    for name, t in (("px", px), ("py", py), ("scalars", scalars)):
+        _expect(name, t, (n, NUM_LIMBS, b))
+    _expect("pinf", pinf, (n, b), torch.bool)
+    lib = load_kernels().lib
+    scratch = torch.empty((max(lib.bn_msm_pippenger_scratch_bytes(n, c, b, chunk), 1),),
+                          dtype=torch.uint8, device=px.device)
+    return (px.contiguous(), py.contiguous(), pinf.to(torch.uint8).contiguous(),
+            scalars.contiguous(), n, b, scratch)
+
+
+def _affine_out(b: int, dev):
+    ox = torch.empty((NUM_LIMBS, b), dtype=torch.int32, device=dev)
+    return ox, torch.empty_like(ox), torch.empty((b,), dtype=torch.bool, device=dev)
+
+
+def msm_pippenger(points, scalars, c: int = 8, chunk: int = PIPPENGER_CHUNK):
+    """Per-lane bucket MSM sum_j scalars[j] * points[j] in affine form,
+    kernel K6 (six launches on the current stream, counted as one call),
+    for large point counts.
+
+    points and scalars as ``msm_affine``'s, c the window width (1..16),
+    chunk the entries a thread of the bucket stage takes. The digits,
+    their counting sort, the bucket sums over chunks of all rows, the
+    merge of split buckets, the window sums and the combine all run in
+    K6 (csrc/pippenger.cuh); the wrapper allocates one scratch buffer and
+    the window sums. Returns (x (16,B) int32, y (16,B) int32, inf (B,)
     bool); infinity is (0, 0, True)."""
     px, py, pinf = points
     if _on_cpu(px, py, pinf, scalars):
         return M.pippenger_plain(points, scalars, c)
-    n, _, b = px.shape
-    if n < 1:
-        raise ValueError("msm_pippenger: needs at least one point")
-    for name, t in (("px", px), ("py", py), ("scalars", scalars)):
-        _expect(name, t, (n, NUM_LIMBS, b))
-    _expect("pinf", pinf, (n, b), torch.bool)
-    _, order, starts = M.bucket_order(pinf, scalars, c)
-    px, py = px.contiguous(), py.contiguous()
-    order, starts = order.to(torch.int32).contiguous(), starts.to(torch.int32).contiguous()
-    wsum = torch.empty((b, M.windows(c), 24), dtype=torch.int32, device=px.device)
-    ox = torch.empty((NUM_LIMBS, b), dtype=torch.int32, device=px.device)
-    oy = torch.empty_like(ox)
-    oinf = torch.empty((b,), dtype=torch.bool, device=px.device)
+    px, py, pinf8, scalars, n, b, scratch = _pippenger_args(points, scalars, c, chunk)
+    wsum = torch.empty((b, M.windows(c), M.G1_WORDS), dtype=torch.int32, device=px.device)
+    ox, oy, oinf = _affine_out(b, px.device)
     if b == 0:
         return ox, oy, oinf
-    launch(ox.device, "bn_msm_pippenger", px.data_ptr(), py.data_ptr(), order.data_ptr(),
-           starts.data_ptr(), n, c, wsum.data_ptr(), ox.data_ptr(), oy.data_ptr(),
-           oinf.data_ptr(), b)
+    launch(ox.device, "bn_msm_pippenger", px.data_ptr(), py.data_ptr(), pinf8.data_ptr(),
+           scalars.data_ptr(), n, c, chunk, scratch.data_ptr(), wsum.data_ptr(),
+           ox.data_ptr(), oy.data_ptr(), oinf.data_ptr(), b)
+    msm_pippenger.launches += 1
+    return ox, oy, oinf
+
+
+def msm_pippenger_windows(points, scalars, c: int = 8, chunk: int = PIPPENGER_CHUNK,
+                          stage_ms=None):
+    """K6 without its combine: each lane's window sums sum_j j * B_j,
+    (B, W, 24) int32 words (ops/msm.py::to_words), for
+    ``msm_pippenger_combine`` (parallel/sharded.py sums its ranks' window
+    sums there). Its plain twin on CPU tensors. A launch counts in
+    ``msm_pippenger.launches``. With a list ``stage_ms``, the five
+    stages' ms by CUDA events (digits, sort, buckets, merge, reduction)
+    are appended to it, after a sync."""
+    px, py, pinf = points
+    if _on_cpu(px, py, pinf, scalars):
+        return M.window_sums_plain(points, scalars, c)
+    px, py, pinf8, scalars, n, b, scratch = _pippenger_args(points, scalars, c, chunk)
+    wsum = torch.empty((b, M.windows(c), M.G1_WORDS), dtype=torch.int32, device=px.device)
+    if b == 0:
+        return wsum
+    ms = (ctypes.c_float * 5)()
+    launch(px.device, "bn_msm_pippenger_windows", px.data_ptr(), py.data_ptr(),
+           pinf8.data_ptr(), scalars.data_ptr(), n, c, chunk, scratch.data_ptr(),
+           wsum.data_ptr(), b, ms if stage_ms is not None else None)
+    msm_pippenger.launches += 1
+    if stage_ms is not None:
+        stage_ms.extend(ms)
+    return wsum
+
+
+def msm_pippenger_combine(wsums, c: int = 8):
+    """K6's combine: the affine sum per lane of k sets of window sums
+    wsums (k, B, W, 24) int32 words, added window by window, then Horner
+    over the windows. Its plain twin on CPU tensors. A launch counts in
+    ``msm_pippenger.launches``."""
+    if _on_cpu(wsums):
+        return M.combine_plain(wsums, c)
+    k, b = wsums.shape[:2]
+    if k < 1:
+        raise ValueError("msm_pippenger_combine: needs at least one set of window sums")
+    _expect("wsums", wsums, (k, b, M.windows(c), M.G1_WORDS))
+    wsums = wsums.contiguous()
+    ox, oy, oinf = _affine_out(b, wsums.device)
+    if b == 0:
+        return ox, oy, oinf
+    launch(ox.device, "bn_msm_pippenger_combine", wsums.data_ptr(), k, c, ox.data_ptr(),
+           oy.data_ptr(), oinf.data_ptr(), b)
     msm_pippenger.launches += 1
     return ox, oy, oinf
 
@@ -276,8 +354,8 @@ miller_product.launches = 0
 msm_pippenger.launches = 0
 
 __all__ = ["KERNEL_ENTRY_POINTS", "mont_mul", "g2_on_curve", "msm_affine", "miller_mixed",
-           "final_exp", "miller_product", "msm_pippenger", "launch_counts",
-           "reset_launch_counts"]
+           "final_exp", "miller_product", "msm_pippenger", "msm_pippenger_windows",
+           "msm_pippenger_combine", "launch_counts", "reset_launch_counts"]
 
 
 def pairing(p_affine, q_affine):

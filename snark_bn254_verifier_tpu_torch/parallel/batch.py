@@ -42,8 +42,10 @@ PlonK proofs hold only G1 points, so there is no G2 mask. A bad proof
 masks its lane False instead of raising. On a CUDA device every stage
 goes through its kernel; a CPU device runs the plain twins. Every MSM
 goes through ops/msm.py::msm_best, as the JAX package's _msm_affine
-(batch.py:177-197 there): Pippenger (K6) from PIPPENGER_THRESHOLD points,
-which only a Groth16 VK with 63 or more public inputs reaches, else K2.
+(batch.py:177-197 there): Pippenger (K6) where ops/msm.py::use_pippenger
+says (16 points or more, at most 4 lanes a point), which only a Groth16 VK
+with 15 or more public inputs reaches, and then only in small batches;
+else K2.
 
 ``verify_batch_async`` (batch.py:280-325 and :478-627 there) returns the
 device bool tensor without waiting for the card, so the caller can parse

@@ -22,9 +22,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-from ..models.packing import stack_g1
 from ..models.torch_backend import resolve_device
-from ..ops import msm as M
 from ..ops import pairing_cuda as PC
 
 
@@ -115,11 +113,15 @@ def sharded_msm(mesh: DeviceMesh, points, scalars, axis: str = "model", c: int =
 
     points (x (N,16,B), y (N,16,B), inf (N,B)) and scalars (N,16,B) as
     ops/msm.py takes them, all N points on every rank; N must divide by
-    the axis's size. Each rank runs ops/msm.py::msm_best (Pippenger at 64
-    points or more, K6) on its N / size points, the affine partials are
-    gathered over the axis's process group, and each rank sums them with
-    K2 at scalar 1 (its plain twin on the CPU). Returns the affine sum
-    (x (16,B), y (16,B), inf (B,)), the same on every rank of the axis."""
+    the axis's size. Each rank runs K6's stages 1-5 on its N / size points
+    (ops/pairing_cuda.py::msm_pippenger_windows: its (B, W, 24) Jacobian
+    window sums), the window sums are gathered over the axis's process
+    group, and each rank runs K6's combine once on all of them
+    (``msm_pippenger_combine``: the sets added window by window, then
+    Horner); the plain twins on the CPU. No scalar multiplication by one
+    remains, as the JAX package's sum of its shards' partials has none.
+    Returns the affine sum (x (16,B), y (16,B), inf (B,)), the same on
+    every rank of the axis."""
     sub, dev = mesh[axis], _mesh_device(mesh)
     size, part = sub.size(), sub.get_local_rank()
     n = points[0].shape[0]
@@ -127,12 +129,8 @@ def sharded_msm(mesh: DeviceMesh, points, scalars, axis: str = "model", c: int =
         raise ValueError(f"{n} points do not split over {size} ranks")
     lo, hi = part * (n // size), (part + 1) * (n // size)
     local = tuple(torch.as_tensor(t)[lo:hi].contiguous().to(dev) for t in points)
-    x, y, inf = M.msm_best(local, torch.as_tensor(scalars)[lo:hi].contiguous().to(dev), c)
-    mine = stack_g1(x, y, inf)  # (33, B): one collective
+    mine = PC.msm_pippenger_windows(
+        local, torch.as_tensor(scalars)[lo:hi].contiguous().to(dev), c)
     parts = [torch.empty_like(mine) for _ in range(size)]
     dist.all_gather(parts, mine, group=sub.get_group())
-    stacked = torch.stack(parts)  # (size, 33, B)
-    px, py, pinf = stacked[:, :16], stacked[:, 16:32], stacked[:, 32].bool()
-    ones = torch.zeros_like(px)
-    ones[:, 0] = 1  # scalar 1, canonical
-    return PC.msm_affine((px.contiguous(), py.contiguous(), pinf.contiguous()), ones)
+    return PC.msm_pippenger_combine(torch.stack(parts), c)

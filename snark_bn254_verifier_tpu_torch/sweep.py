@@ -1,4 +1,4 @@
-"""Time variants of the team kernels against the built ones, on one card.
+"""Time variants of the team kernels and K6 against the built ones, on one card.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -32,7 +32,8 @@ import time
 import numpy as np
 import torch
 
-from .models.packing import pack_g1, pack_g2, pair_major
+from .fixtures.msm_lanes import trapdoor_msm
+from .models.packing import pack_g1, pack_g2, pack_msm, pair_major
 from .ops import _build
 from .ops import lines as LN
 from .ops import pairing_cuda as PC
@@ -40,7 +41,11 @@ from .ops.limbs import FR
 from .oracle import bn254 as bn
 
 SWEEP_DIR = _build.BUILD_DIR / "sweep"
-KERNEL_UNIT = {"msm_affine": 2, "miller_mixed": 3, "final_exp": 4, "miller_product": 5}
+K6_BULK = ("pippenger.cu", ("-DBN_PIP_COMBINE=0",))  # K6's stages 1-5 (pippenger.cu)
+KERNEL_UNIT = {"msm_affine": _build.team_unit(2), "miller_mixed": _build.team_unit(3),
+               "final_exp": _build.team_unit(4), "miller_product": _build.team_unit(5),
+               "msm_pippenger": K6_BULK}
+T2, T3, T4, T5 = (_build.team_unit(k) for k in (2, 3, 4, 5))
 
 # (name, units rebuilt, {file: [(old, new)]}, exact); "base" is the main
 # build, whose shapes and forms were kept. An ablation (exact=False) drops
@@ -111,27 +116,37 @@ _K2_SHARED_CHAIN = """\
   TEAM_SYNC();
 """
 VARIANTS = [
-    ("K5 12x4x1", (5,), {"team.cuh": [("#define MP_TEAM 18", "#define MP_TEAM 12")]}, True),
-    ("K5 18x4x2", (5,), {"team.cuh": [("#define MP_LPB 1", "#define MP_LPB 2")]}, True),
-    ("K2 16x1", (2,), {"msm.cuh": [("#define MSM_LPB 2", "#define MSM_LPB 1")]}, True),
-    ("K2 8x4", (2,), {"msm.cuh": [("#define MSM_TEAM 16", "#define MSM_TEAM 8"),
-                                  ("#define MSM_LPB 2", "#define MSM_LPB 4")]}, True),
-    ("K2 Fermat inverse", (2,), {"curve.cuh": [("fq_inv_binary(zinv, p.z);",
-                                                "fq_inv(zinv, p.z);")]}, True),
-    ("K2 K5 unrolled CIOS", (2, 5), {"team_kernels.cu": [(_ROLLED, "#if 0")]}, True),
-    ("K3 K4 rolled CIOS", (3, 4), {"team_kernels.cu": [(_ROLLED, "#if 1")]}, True),
-    ("K5 no f squaring", (5,), {"team.cuh": [
+    ("K5 12x4x1", (T5,), {"team.cuh": [("#define MP_TEAM 18", "#define MP_TEAM 12")]}, True),
+    ("K5 18x4x2", (T5,), {"team.cuh": [("#define MP_LPB 1", "#define MP_LPB 2")]}, True),
+    ("K2 16x1", (T2,), {"msm.cuh": [("#define MSM_LPB 2", "#define MSM_LPB 1")]}, True),
+    ("K2 8x4", (T2,), {"msm.cuh": [("#define MSM_TEAM 16", "#define MSM_TEAM 8"),
+                                   ("#define MSM_LPB 2", "#define MSM_LPB 4")]}, True),
+    ("K2 Fermat inverse", (T2,), {"curve.cuh": [("fq_inv_binary(zinv, p.z);",
+                                                 "fq_inv(zinv, p.z);")]}, True),
+    ("K2 K5 unrolled CIOS", (T2, T5), {"team_kernels.cu": [(_ROLLED, "#if 0")]}, True),
+    ("K3 K4 rolled CIOS", (T3, T4), {"team_kernels.cu": [(_ROLLED, "#if 1")]}, True),
+    ("K5 no f squaring", (T5,), {"team.cuh": [
         ("    team_mul(t, f, f, f, scratch);\n    if (has_var)", "    if (has_var)")]}, False),
-    ("K5 no line products", (5,), {"team.cuh": [
+    ("K5 no line products", (T5,), {"team.cuh": [
         ("    team_mul_line(t, f, scratch, l00, l10, l11);\n  }\n  for (int j = 0; j < nf",
          "  }\n  for (int j = 0; j < nf")]}, False),
-    ("K5 no G2 steps", (5,), {"team.cuh": [
+    ("K5 no G2 steps", (T5,), {"team.cuh": [
         ("    if (has_var) team_dbl_step(t, G);", ""),
         ("    if (has_var) team_add_step(t, G, G_XQ, G_YQ);", "")]}, False),
-    ("K2 no doublings", (2,), {"msm.cuh": [
+    ("K2 no doublings", (T2,), {"msm.cuh": [
         ("    for (int k = 0; k < MSM_WINDOW; ++k) g1_dbl(acc, acc);", "")]}, False),
-    ("K2 no window adds", (2,), {"msm.cuh": [("    g1_add(acc, acc, q);\n  }", "  }")]}, False),
-    ("K2 shared chain", (2,), {"msm.cuh": [(_K2_OWN_CHAINS, _K2_SHARED_CHAIN)]}, True),
+    ("K2 no window adds", (T2,), {"msm.cuh": [("    g1_add(acc, acc, q);\n  }", "  }")]}, False),
+    ("K2 shared chain", (T2,), {"msm.cuh": [(_K2_OWN_CHAINS, _K2_SHARED_CHAIN)]}, True),
+    # K6's stages 1-5: the unrolled product; blocks of 64 threads for the
+    # per-thread stages; the reduction's blocks always narrow, always wide
+    ("K6 unrolled CIOS", (K6_BULK,), {"pippenger.cu": [
+        ("#else\n#define BN_ROLLED_CIOS 1", "#else\n#define BN_ROLLED_CIOS 0")]}, True),
+    ("K6 blocks of 64", (K6_BULK,), {"pippenger.cu": [
+        ("#define PIP_BLOCK 128", "#define PIP_BLOCK 64")]}, True),
+    ("K6 narrow reduction", (K6_BULK,), {"pippenger.cuh": [
+        ("#define PIP_WIDE_ROWS 1024", "#define PIP_WIDE_ROWS 1")]}, True),
+    ("K6 wide reduction", (K6_BULK,), {"pippenger.cuh": [
+        ("#define PIP_WIDE_ROWS 1024", "#define PIP_WIDE_ROWS (1ll << 40)")]}, True),
 ]
 
 
@@ -150,7 +165,7 @@ def build_variant(name: str, kernels, edits, nvcc: str):
                 raise RuntimeError(f"variant {name}: edit not found in {fname}")
             text = text.replace(old, new)
         (src / fname).write_text(text)
-    units = [_build.team_unit(k) for k in kernels]
+    units = list(kernels)
     return name, root, units, _build.start_units(nvcc, src, root / "obj", units)
 
 
@@ -197,6 +212,18 @@ def cases(seed: int = 0):
                            for _ in range(n)])])[0]
         return lambda: PC.msm_affine(pts, sc)
 
+    def pippenger(n, b):
+        if b == 1:  # the bench's trapdoor points (fixtures/msm_lanes.py, seed 11)
+            pts, scs, _ = trapdoor_msm(n, 11)
+            packed, sc = pack_msm(pts, scs)
+            P, S = on(packed), on([sc])[0]
+        else:
+            packed = [pack_g1([g1[rng.randrange(8)] for _ in range(b)]) for _ in range(n)]
+            P = on([np.stack([p[i] for p in packed]) for i in range(3)])
+            S = on([np.stack([FR.pack([rng.randrange(bn.R) for _ in range(b)], mont=False)
+                              for _ in range(n)])])[0]
+        return lambda: PC.msm_pippenger(P, S)
+
     def pairs(n, b):
         ps = [[g1[rng.randrange(8)] for _ in range(b)] for _ in range(n)]
         qs = [[g2[rng.randrange(4)] for _ in range(b)] for _ in range(n)]
@@ -219,6 +246,8 @@ def cases(seed: int = 0):
         ("miller_mixed", "B=1024", lambda: PC.miller_mixed(vp, vq, fixed, lines, tails)),
         ("final_exp", "B=1", lambda: PC.final_exp(f[:, :, :1].contiguous())),
         ("final_exp", "B=1024", lambda: PC.final_exp(f)),
+        ("msm_pippenger", "B=1 n=2^16", pippenger(1 << 16, 1)),
+        ("msm_pippenger", "B=1024 n=64", pippenger(64, b)),
     ]
 
 

@@ -97,6 +97,38 @@ def bound(fp_muls: int, nbytes: int) -> dict:
             "fp_muls": fp_muls, "imads": fp_muls * IMAD_PER_FP_MUL, "bytes": nbytes}
 
 
+def pippenger_work(points, scalars, c: int) -> int:
+    """Montgomery products the bucket MSM (kernel K6) needs on these
+    inputs, summed over lanes: a mixed add per finite point of nonzero
+    digit and window, the running sums (two full adds a bucket and
+    window), Horner (c doublings and an add a window) and the affine
+    conversion; each operation's products counted on its plain formula
+    (``count_fp_muls``). The merges of buckets split between the kernel's
+    chunks and its teams' repeated work are not counted: the bound counts
+    what the method needs, not what one design computes."""
+    import torch
+
+    from ..models.packing import pack_g1
+    from ..ops import curve as C
+    from ..ops import msm as M
+    from ..oracle import bn254 as bn
+
+    g1 = C.G1_OPS
+    x, y, inf = (torch.as_tensor(a) for a in pack_g1([bn.G1_GEN]))
+    x, y = x.to(torch.int64), y.to(torch.int64)
+    q = C.jacobian_double(g1, C.to_jacobian(g1, (x, y, inf)))  # 2G and 4G, Z != 1
+    r = C.jacobian_double(g1, q)
+    madd = count_fp_muls(lambda: C.jacobian_add_mixed(g1, q, (x, y, inf)))
+    add = count_fp_muls(lambda: C.jacobian_add(g1, q, r))
+    dbl = count_fp_muls(lambda: C.jacobian_double(g1, q))
+    affine = count_fp_muls(lambda: C.to_affine(g1, q))
+    digits = M._digits(scalars, c).masked_fill(points[2].to(torch.bool).unsqueeze(0), 0)
+    nonzero = int((digits != 0).sum().item())
+    w, b = M.windows(c), scalars.shape[-1]
+    per_lane = w * 2 * ((1 << c) - 1) * add + (w - 1) * (c * dbl + add) + affine
+    return nonzero * madd + b * per_lane
+
+
 def _count(fn) -> int:
     """Products of fn(), every ``pow_const`` charged 2 a bit."""
     with _counting(charge_pow=True) as total:

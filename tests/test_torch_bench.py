@@ -38,7 +38,8 @@ FIELDS = {
                       "mont_mults_per_sec", "pct_imad_roofline", "warmup_s"},
     "plonk_batch": {"value", "unit", "batch", "iters", "vector", "pairings_per_sec",
                     "host_stage_s", "mults_per_proof", "pct_imad_roofline"},
-    "msm": {"value", "unit", "points", "window_bits", "points_per_sec", "chips"},
+    "msm": {"value", "unit", "points", "window_bits", "points_per_sec", "chips", "fp_muls",
+            "bound_ms", "bound_by"},
     "mixed": {"value", "unit", "batch", "iters", "vector", "host_stage_s"},
     "groth16_single": {"value", "unit", "iters"},
     "plonk_single": {"value", "unit", "iters", "vector"},
@@ -131,6 +132,7 @@ def test_msm_line(capsys):
     assert rc == 0
     check_line("msm", line)
     assert line["points"] == 64 and line["window_bits"] == 8 and line["iters"] == 2
+    assert line["bound_by"] == "operations" and line["fp_muls"] > 64 * 11  # a madd a digit
 
 
 def test_kernel_validation_line_on_the_cpu(capsys):

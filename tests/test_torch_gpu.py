@@ -232,11 +232,15 @@ def test_groth16_facade_on_cuda(cuda):
     assert all(launches[k] > 0 for k in ("msm_affine", "miller_product", "final_exp"))
 
 
-@pytest.mark.parametrize("n,c,b", [(70, 8, 3), (5, 4, 1), (300, 8, 2), (64, 12, 1)])
-def test_msm_pippenger_kernel_equals_plain(cuda, n, c, b):
-    """K6 on ragged sizes and window widths, with points at infinity, zero
-    scalars and one point repeated (P + P in a bucket) on lane 0: one
-    counted launch, exact against its plain twin and K2."""
+@pytest.mark.parametrize("n,c,b,chunk", [(70, 8, 3, 32), (5, 4, 1, 32), (300, 8, 2, 32),
+                                         (64, 12, 1, 32), (64, 14, 2, 32), (300, 3, 2, 7),
+                                         (40, 5, 3, 1000), (200, 8, 1, 1)])
+def test_msm_pippenger_kernel_equals_plain(cuda, n, c, b, chunk):
+    """K6 on ragged sizes, window widths and chunk lengths (runs split over
+    many chunks, chunks of many whole buckets, c = 14 counting in global
+    scratch), with points at infinity, zero scalars and one point repeated
+    (P + P in a bucket) on lane 0: one counted launch, exact against its
+    plain twin and K2; its halves (window sums, then the combine) too."""
     rng = random.Random(90 + n)
     pool = points(rng, 5)
     lanes = [[pool[(i * j) % 5] if (i + j) % 7 else None for i in range(b)] for j in range(n)]
@@ -246,11 +250,32 @@ def test_msm_pippenger_kernel_equals_plain(cuda, n, c, b):
                            mont=False) for j in range(n)])
     P, S = on(cuda, pair_major(pack_g1, lanes)), torch.as_tensor(sc, device=cuda)
     before = PC.msm_pippenger.launches
-    got = PC.msm_pippenger(P, S, c)
+    got = PC.msm_pippenger(P, S, c, chunk=chunk)
     assert PC.msm_pippenger.launches == before + 1
     want = M.pippenger_plain(tuple(t.cpu() for t in P), S.cpu(), c)
     assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
     assert all(torch.equal(g, k) for g, k in zip(got, PC.msm_affine(P, S)))
+    halves = PC.msm_pippenger_combine(PC.msm_pippenger_windows(P, S, c, chunk).unsqueeze(0), c)
+    assert all(torch.equal(g, h) for g, h in zip(got, halves))
+
+
+def test_msm_pippenger_combine_sums_sets_on_cuda(cuda):
+    """K6's combine on three sets of window sums, the kernel's and the
+    plain twin's: the affine sum of the three MSMs, equal to the twin's
+    combine and to K6 on all the points at once."""
+    rng = random.Random(92)
+    pool = points(rng, 4)
+    pts = [[pool[(i + j) % 4] for i in range(2)] for j in range(96)]
+    sc = np.stack([FR.pack([rng.randrange(bn.R) for _ in range(2)], mont=False)
+                   for _ in range(96)])
+    P, S = on(cuda, pair_major(pack_g1, pts)), torch.as_tensor(sc, device=cuda)
+    sets = [PC.msm_pippenger_windows(tuple(t[:32] for t in P), S[:32]),
+            M.window_sums_plain(tuple(t[32:64].cpu() for t in P), S[32:64].cpu()).to(cuda),
+            PC.msm_pippenger_windows(tuple(t[64:] for t in P), S[64:])]
+    got = PC.msm_pippenger_combine(torch.stack(sets))
+    assert all(torch.equal(g.cpu(), w) for g, w in
+               zip(got, M.combine_plain(torch.stack(sets).cpu())))
+    assert all(torch.equal(g, w) for g, w in zip(got, PC.msm_pippenger(P, S)))
 
 
 def test_torch_backend_msm_large_on_cuda(cuda):

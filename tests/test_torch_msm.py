@@ -3,7 +3,7 @@ kernel K6, against the JAX package's oracle (oracle/bn254.py::g1_msm,
 which imports no JAX), the port's oracle and K2's plain twin, over lanes
 with zero scalars, points at infinity, one point repeated (P + P inside a
 bucket) and all-zero scalars; ``_digits`` against the JAX package's;
-msm_best's switch at PIPPENGER_THRESHOLD; TorchBackend.msm through it.
+msm_best's switch by points and lanes; TorchBackend.msm through it.
 
 Slow: the JAX package's msm_pippenger_jit on the same points."""
 
@@ -122,15 +122,22 @@ def test_bucket_order_runs_hold_their_digit():
             assert starts[lane, win, 16] == 40
 
 
-@pytest.mark.parametrize("n,kernel", [(63, "msm_affine"), (64, "msm_pippenger")])
-def test_msm_best_switches_at_the_threshold(monkeypatch, n, kernel):
+@pytest.mark.parametrize("n,b,kernel", [
+    (15, 1, "msm_affine"), (16, 1, "msm_pippenger"),         # B = 1: from 16 points
+    (16, 32, "msm_pippenger"), (16, 65, "msm_affine"),       # B = 32: from 16 points
+    (64, 1024, "msm_affine"), (255, 1024, "msm_affine"),     # B = 1024: from 256
+    (256, 1024, "msm_pippenger"), (15, 32, "msm_affine"),
+])
+def test_msm_best_switches_at_the_threshold(monkeypatch, n, b, kernel):
+    """The switch measured on the card (ops/msm.py::use_pippenger): K6 from
+    16 points where there are no more than 4 lanes a point."""
     calls = []
     for name in ("msm_affine", "msm_pippenger"):
         monkeypatch.setattr(PC, name, lambda *a, name=name: calls.append(name))
-    points = tuple(torch.zeros((n, 16, 1), dtype=torch.int32) for _ in range(2))
-    M.msm_best(points + (torch.ones((n, 1), dtype=torch.bool),),
-               torch.zeros((n, 16, 1), dtype=torch.int32))
-    assert calls == [kernel] and M.PIPPENGER_THRESHOLD == 64
+    points = tuple(torch.zeros((n, 16, b), dtype=torch.int32) for _ in range(2))
+    M.msm_best(points + (torch.ones((n, b), dtype=torch.bool),),
+               torch.zeros((n, 16, b), dtype=torch.int32))
+    assert calls == [kernel] and M.PIPPENGER_THRESHOLD == 16
 
 
 def test_cpu_tensors_take_the_twin_and_count_no_launch():

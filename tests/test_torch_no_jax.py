@@ -37,7 +37,7 @@ from snark_bn254_verifier_tpu_torch import examples
 from snark_bn254_verifier_tpu_torch.models.backend import get_backend
 from snark_bn254_verifier_tpu_torch.ops import msm
 from snark_bn254_verifier_tpu_torch.parallel import sharded
-assert msm.PIPPENGER_THRESHOLD == 64 and callable(sharded.sharded_msm)
+assert msm.PIPPENGER_THRESHOLD == 16 and callable(sharded.sharded_msm)
 backend = TorchBackend("cpu")
 assert get_backend(backend) is backend
 assert backend.msm([], []) is None

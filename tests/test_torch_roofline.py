@@ -106,6 +106,7 @@ def _load_chip_smoke():
 def test_chip_smoke_uses_the_module_model():
     smoke = _load_chip_smoke()
     assert smoke.bound is PR.bound and smoke.count_fp_muls is PR.count_fp_muls
+    assert smoke.pippenger_work is PR.pippenger_work
     assert not hasattr(smoke, "IMAD_PER_S") and not hasattr(smoke, "HBM_BYTES_PER_S")
 
 
@@ -119,6 +120,31 @@ def test_bound_reads_the_kernel_table(fp_muls, nbytes, bound_ms, by):
     got = PR.bound(fp_muls, nbytes)
     assert got["bound_ms"] == pytest.approx(bound_ms, rel=5e-3) and got["bound_by"] == by
     assert got["imads"] == 264 * fp_muls and got["bytes"] == nbytes
+
+
+def test_pippenger_work_equals_a_hand_count():
+    """K6's bound counts the bucket method's products on its inputs: at
+    c = 8 (32 windows), two lanes of four points. Lane 0: scalars 1, 257,
+    0 and 5, the last point at infinity, so 1 + 2 nonzero digits; lane 1:
+    scalars 0, 0, 0 and 2^16 + 3, 2 nonzero digits. Each nonzero digit a
+    mixed add (madd-2007-bl, 11 products); each lane the running sums (2
+    full adds a bucket and window, add-2007-bl, 16 products), Horner (31
+    windows of 8 doublings, dbl-2009-l, 7 products, and an add) and one
+    affine conversion (a Fermat inverse and 3 products on the twin, 368)."""
+    from snark_bn254_verifier_tpu_torch.models.packing import pack_msm
+    from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
+
+    pts = [bn.g1_mul(bn.G1_GEN, k) for k in (1, 2, 3, 4)]
+    (x0, y0, inf0), sc0 = pack_msm(pts, [1, 257, 0, 5])
+    (x1, y1, inf1), sc1 = pack_msm(pts, [0, 0, 0, (1 << 16) + 3])
+    inf0 = inf0.copy()
+    inf0[3] = True
+    points = (torch.as_tensor(np.concatenate([x0, x1], -1)),
+              torch.as_tensor(np.concatenate([y0, y1], -1)),
+              torch.as_tensor(np.concatenate([inf0, inf1], -1)))
+    scalars = torch.as_tensor(np.concatenate([sc0, sc1], -1))
+    per_lane = 32 * 2 * 255 * 16 + 31 * (8 * 7 + 16) + 368
+    assert PR.pippenger_work(points, scalars, 8) == 5 * 11 + 2 * per_lane
 
 
 def test_count_fp_muls_of_a_mask_lane_and_a_final_exp():

@@ -1,8 +1,9 @@
 """The port's multi-device layer (parallel/sharded.py) over torch.distributed
 on the CPU: two gloo processes run sharded_msm on N = 128 trapdoor points
-(each rank Pippenger's plain twin on its 64), and both ranks get the
-closed form; shard_batch gives each rank its slice and replicate the
-whole; at world size 1 sharded_msm equals msm_best. The counterpart of
+(each rank the plain twin of K6's window sums on its 64, then the twin of
+K6's combine on both ranks' sets), and both ranks get the closed form;
+shard_batch gives each rank its slice and replicate the whole; at world
+size 1 sharded_msm equals msm_best. The counterpart of
 tests/test_multihost.py, with its own worker (tests/torch_dist_worker.py)."""
 
 import os
