@@ -22,8 +22,11 @@ It builds the port's CUDA kernels from csrc/, then
      closed form at 2^16 points, timed there whole and stage by stage
      (CUDA events) and at each chunk length of PIP_CHUNKS, its halves (the
      window sums, then the combine) exact, and K2 against K6 on both
-     sides of msm_best's switch; and computes each kernel's bound from the
-     work its twin counts;
+     sides of msm_best's switch; K7a and K7b (the PlonK batch's lane
+     pass) on the PlonK batch's own 1024 lanes, a bad lane of every kind
+     among them, bit for bit against their twins, K7a's valid bits against
+     the verdicts; and computes each kernel's bound from the work its twin
+     counts (for K7 its products and SHA-256 compressions);
   2. drives the batched Groth16 path, ``Groth16BatchVerifier(vk,
      device="cuda")`` on a batch of 1024 proofs of the bench vector with
      bad lanes at fixed positions, checks the exact bool vector and that
@@ -33,8 +36,9 @@ It builds the port's CUDA kernels from csrc/, then
   3. drives the PlonK batch, ``PlonkBatchVerifier(vk, device="cuda")`` on
      1024 lanes of the synthetic BSB22 vector with bad lanes of every kind
      spread over the batch (fixtures/plonk_lanes.py), checks the exact
-     bool vector, that each batch launches K2 three times, K3 once with no
-     variable pair, K4 once and nothing else, and the first 8 lanes
+     bool vector, that each batch launches K7a and K7b once, K2 three
+     times, K3 once with no variable pair, K4 once and nothing else, that
+     no stage copies phase A's digests to the host, and the first 8 lanes
      against the CPU run, and times warm batches with their stages;
      each batch path then runs PIPELINED batches through
      ``verify_batch_async``, at most two in flight, with the exact bools
@@ -85,7 +89,8 @@ import time
 
 # The card's model (peaks, products a Montgomery multiply, bounds) is the
 # port's utils/roofline.py, which the bench's roofline fields use too.
-from snark_bn254_verifier_tpu_torch.utils.roofline import bound, count_fp_muls, pippenger_work
+from snark_bn254_verifier_tpu_torch.utils.roofline import (bound, count_fp_muls, count_sha256,
+                                                           pippenger_work)
 
 BATCH = 1024  # proofs per batch, the batch the repo's bench verifies
 ITERS = 3     # warm slice runs timed
@@ -95,9 +100,11 @@ CSRC = "snark_bn254_verifier_tpu_torch/csrc/"
 SOURCE = {"mont_mul": CSRC + "fp.cuh", "g2_on_curve": CSRC + "curve.cuh",
           "msm_affine": CSRC + "msm.cuh",
           "miller_mixed": CSRC + "team.cuh", "final_exp": CSRC + "team.cuh",
-          "miller_product": CSRC + "team.cuh", "msm_pippenger": CSRC + "pippenger.cuh"}
-# run on a team of threads per lane
-TEAM_KERNELS = ("msm_affine", "miller_mixed", "final_exp", "miller_product")
+          "miller_product": CSRC + "team.cuh", "msm_pippenger": CSRC + "pippenger.cuh",
+          "plonk_lanes_a": CSRC + "plonk.cuh", "plonk_lanes_b": CSRC + "plonk.cuh"}
+# run on a team of threads per lane (K7 on teams of one: a thread a lane)
+TEAM_KERNELS = ("msm_affine", "miller_mixed", "final_exp", "miller_product", "plonk_lanes_a",
+                "plonk_lanes_b")
 PALLAS = "snark_bn254_verifier_tpu/ops/"
 # kernel -> (TPU kernels it replaces, file:line); the first is "replaces"
 REPLACES = {
@@ -109,6 +116,10 @@ REPLACES = {
     "miller_product": [PALLAS + "pairing_pallas.py:84", PALLAS + "pairing_pallas.py:171"],
     # no Pallas original: the JAX package's bucket MSM is XLA
     "msm_pippenger": ["snark_bn254_verifier_tpu/ops/msm.py:59"],
+    # no Pallas original: the JAX package's PlonK batch runs this pass in
+    # Python on the host, the lane passes and the KZG fold
+    "plonk_lanes_a": ["snark_bn254_verifier_tpu/parallel/batch.py:642-733"],
+    "plonk_lanes_b": ["snark_bn254_verifier_tpu/parallel/batch.py:575-600"],
 }
 
 
@@ -171,7 +182,7 @@ def time_plain(fn, warm_up=True):
 
 
 def max_abs_err(a, b) -> int:
-    return int((a.to(dtype=b.dtype) - b).abs().max().item()) if a.numel() else 0
+    return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
 
 
 def lane_cpu(args, lane):
@@ -215,17 +226,24 @@ def run_recorded(fn):
     return out, calls
 
 
-@functools.lru_cache(maxsize=None)
-def plonk_inputs(batch: int):
-    """The PlonK batch: gen_plonk_vector(0) at ``batch`` lanes with bad
-    lanes at fixed positions, four in the first eight (the lanes checked
-    against the CPU run), then one every 37 lanes through every kind
-    (fixtures/plonk_lanes.py). Returns (vector, proofs, inputs, expected)."""
-    from snark_bn254_verifier_tpu_torch.fixtures.plonk_lanes import KINDS, plonk_batch_lanes
+def plonk_bad(batch: int) -> dict:
+    """The PlonK batch's bad lanes: four in the first eight (the lanes
+    checked against the CPU run), then one every 37 lanes through every
+    kind of fixtures/plonk_lanes.py."""
+    from snark_bn254_verifier_tpu_torch.fixtures.plonk_lanes import KINDS
 
     bad = {1: "truncated", 3: "opening_doubled", 5: "claimed0", 6: "shifted_doubled"}
     bad.update({lane: KINDS[k % len(KINDS)] for k, lane in enumerate(range(40, batch, 37))})
-    return plonk_batch_lanes(batch, bad)
+    return bad
+
+
+@functools.lru_cache(maxsize=None)
+def plonk_inputs(batch: int):
+    """The PlonK batch: gen_plonk_vector(0) at ``batch`` lanes with the bad
+    lanes of ``plonk_bad``. Returns (vector, proofs, inputs, expected)."""
+    from snark_bn254_verifier_tpu_torch.fixtures.plonk_lanes import plonk_batch_lanes
+
+    return plonk_batch_lanes(batch, plonk_bad(batch))
 
 
 def plonk_rng():
@@ -269,6 +287,7 @@ class Ctx:
         self.q_fixed = [bn.g2_mul(bn.G2_GEN, prng.randrange(1, bn.R)) for _ in range(2)]
         self.miller_out = None  # K3's output, K4's input
         self.plonk_calls = None  # the kernels' arguments of one PlonK batch
+        self.plonk_lanes = None  # K7's results, for both of its phases
 
     def rand_limbs(self, modulus: int, shape):
         """Uniform values below the modulus's top limb: (16, *shape) int32."""
@@ -903,6 +922,95 @@ def phase_msm_pippenger(ctx):
     return out
 
 
+def plonk_lanes_results(ctx):
+    """K7a and K7b on the PlonK batch's own inputs (1024 lanes, a bad lane
+    of every kind among them, as the main path gave them to the kernels):
+    each bit for bit against its plain twin on the card, K7a's valid bits
+    against the lanes' verdicts (the doubled openings pass K7 and fail in
+    the pairing), each timed by CUDA events (in a CUDA graph of C-entry
+    launches where under 0.1 ms) beside its twin and its bound. Computed
+    once for both kernels' phases."""
+    if getattr(ctx, "plonk_lanes", None) is not None:
+        return ctx.plonk_lanes
+    import torch
+
+    from snark_bn254_verifier_tpu_torch.ops import _build
+    from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
+    from snark_bn254_verifier_tpu_torch.ops import plonk_lanes as PL
+
+    calls = plonk_kernel_args(ctx)
+    (args_a,) = [a for name, a in calls if name == "plonk_lanes_a"]
+    (args_b,) = [a for name, a in calls if name == "plonk_lanes_b"]
+    lib = _build.load_kernels().lib
+    b = ctx.batch
+    _, _, _, expected = plonk_inputs(b)
+    bad = plonk_bad(b)
+    want_ok = [e or bad.get(i) in ("opening_doubled", "shifted_doubled")
+               for i, e in enumerate(expected)]
+
+    def flat(out):
+        return [out[0], out[1], *out[2], out[3]]
+
+    def one_lane(args):  # lane 0 (a good one) of K7's arguments, on the CPU
+        return tuple(a[:1].cpu() if i == 0 else
+                     tuple(t[..., :1].cpu() for t in a) if isinstance(a, tuple) else
+                     a[..., :1].cpu() if isinstance(a, torch.Tensor) else a
+                     for i, a in enumerate(args))
+
+    out = {}
+    for name, args, twin in (("plonk_lanes_a", args_a, PL.plonk_lanes_a_plain),
+                             ("plonk_lanes_b", args_b, PL.plonk_lanes_b_plain)):
+        wrapper = getattr(PC, name)
+        got = wrapper(*args)
+        want, plain_ms = time_plain(lambda: twin(*args))
+        pairs = (list(zip(flat(got), flat(want))) if name == "plonk_lanes_a"
+                 else [(got, want)])
+        err = max(max_abs_err(g, w) for g, w in pairs)
+        require(err == 0, f"{name} differs from its plain twin")
+        if name == "plonk_lanes_a":
+            require(got[0].cpu().tolist() == want_ok, "plonk_lanes_a valid bits != the verdicts")
+            entry_args = [args[0].data_ptr(), args[3].proof_len, args[1].data_ptr(),
+                          args[2].data_ptr(), args[3].words(ctx.dev).data_ptr(),
+                          *[t.data_ptr() for t in flat(got)], b]
+        else:
+            raw, valid, zeta, rand, (dx, dy, dinf), lvk = args
+            entry_args = [raw.data_ptr(), lvk.proof_len, valid.data_ptr(), zeta.data_ptr(),
+                          rand.data_ptr(), dx.data_ptr(), dy.data_ptr(), dinf.data_ptr(),
+                          lvk.words(ctx.dev).data_ptr(), got.data_ptr(), b]
+        entry = getattr(lib, f"bn_{name}")
+
+        def c_entry():
+            entry(*entry_args, torch.cuda.current_stream().cuda_stream)
+
+        ms, timed_by = time_kernel(lambda: wrapper(*args), 20), "cuda events"
+        if ms < 0.1:
+            ms, timed_by = time_graph(c_entry, 1000), "cuda graph"
+        require(all(torch.equal(g, w) for g, w in pairs), f"{name} changed under the timed launches")
+        lane = one_lane(args)
+        fp_muls = count_fp_muls(lambda: twin(*lane)) * b  # the same work on every lane
+        comps = count_sha256(lambda: twin(*lane)) * b
+        if name == "plonk_lanes_a":  # each input read once, each output written once
+            moved = nbytes(*args[:3], *flat(got))
+        else:
+            moved = nbytes(*args[:4], *args[4], got)
+        bnd = bound(fp_muls, moved + nbytes(args[-1].words(ctx.dev)), sha256_compressions=comps)
+        print(f"K7 {name} B={b}: exact vs plain ({sum(want_ok)} lanes valid after K7a); kernel "
+              f"{ms:.5f} ms ({timed_by}), plain {plain_ms:.1f} ms, bound {bnd['bound_ms']:.5f} ms "
+              f"({bnd['bound_by']}: {fp_muls // b} products, {comps // b} compressions a lane)")
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "timed_by": timed_by,
+                     "shape": [b, args[-1].proof_len], **bnd}
+    ctx.plonk_lanes = out
+    return out
+
+
+def phase_plonk_lanes_a(ctx):
+    return plonk_lanes_results(ctx)["plonk_lanes_a"]
+
+
+def phase_plonk_lanes_b(ctx):
+    return plonk_lanes_results(ctx)["plonk_lanes_b"]
+
+
 # One on-card phase per entry of KERNEL_ENTRY_POINTS (checked by
 # tests/test_torch_kernel_registry.py).
 KERNEL_PHASES = {
@@ -913,11 +1021,14 @@ KERNEL_PHASES = {
     "final_exp": phase_final_exp,
     "miller_product": phase_miller_product,
     "msm_pippenger": phase_msm_pippenger,
+    "plonk_lanes_a": phase_plonk_lanes_a,
+    "plonk_lanes_b": phase_plonk_lanes_b,
 }
 # The kernels each path launches; together they cover KERNEL_ENTRY_POINTS
 # but UNLAUNCHED, K1's elementwise form (its fused form runs on the slice).
 SLICE_KERNELS = ("g2_on_curve", "msm_affine", "miller_mixed", "final_exp")
-PLONK_BATCH_KERNELS = ("msm_affine", "miller_mixed", "final_exp")
+PLONK_BATCH_KERNELS = ("plonk_lanes_a", "msm_affine", "plonk_lanes_b", "miller_mixed",
+                       "final_exp")
 SINGLE_KERNELS = ("msm_affine", "final_exp", "miller_product")
 LARGE_MSM_KERNELS = ("msm_pippenger",)
 UNLAUNCHED = ("mont_mul",)
@@ -1001,9 +1112,10 @@ def run_slice(batch: int, iters: int):
 
 
 def run_plonk_batch(batch: int, iters: int):
-    """The PlonK batch on the card: the exact bool vector, per batch three
-    K2 launches, one fixed-only K3, one K4 and no other launch; the first
-    8 lanes equal to the CPU run; then warm batches timed."""
+    """The PlonK batch on the card: the exact bool vector, per batch one
+    launch each of K7a and K7b, three K2 launches, one fixed-only K3, one
+    K4 and no other launch; the first 8 lanes equal to the CPU run; then
+    warm batches timed with their stages, and the pipelined loop."""
     import numpy as np
 
     from snark_bn254_verifier_tpu_torch import PlonkBatchVerifier
@@ -1011,7 +1123,7 @@ def run_plonk_batch(batch: int, iters: int):
 
     vec, proofs, inputs, expected = plonk_inputs(batch)
     want = {name: 0 for name in PC.KERNEL_ENTRY_POINTS}
-    want.update(msm_affine=3, miller_mixed=1, final_exp=1)
+    want.update(plonk_lanes_a=1, msm_affine=3, plonk_lanes_b=1, miller_mixed=1, final_exp=1)
     ver = PlonkBatchVerifier(vec.vk, device="cuda")
     ver._kzg_tables()  # once-per-VK host work, outside the counted run
     PC.reset_launch_counts()
@@ -1048,17 +1160,17 @@ def run_plonk_batch(batch: int, iters: int):
         stages.append(ver.last_stats.extra["stage_ms"])
     best = min(times)
     mean_stage = {k: sum(s[k] for s in stages) / len(stages) for k in stages[0]}
-    mean_stage["host_ms"] = sum(mean_stage[k] for k in (
-        "parse_ms", "host_a_ms", "pack_a_ms", "upload_a_ms", "digest_copy_ms", "host_b_ms",
-        "pack_b_ms", "upload_b_ms"))
+    require("digest_copy_ms" not in mean_stage, "the PlonK batch copies its digests to the host")
+    mean_stage["host_ms"] = sum(mean_stage[k] for k in ("parse_ms", "pack_ms", "upload_ms"))
     mean_stage["kernel_stages_ms"] = sum(mean_stage[k] for k in (
-        "msm_a_ms", "msm_b_ms", "miller_ms", "final_exp_ms", "compare_ms"))
+        "lanes_a_ms", "msm_a_ms", "lanes_b_ms", "msm_b_ms", "miller_ms", "final_exp_ms",
+        "compare_ms"))
     print(f"PlonK batch warm: {iters} runs, batch s {[round(t, 4) for t in times]}, "
           f"{batch / best:.1f} proofs/s (best), {batch * iters / sum(times):.1f} proofs/s (mean)")
     print("PlonK batch stage ms (mean): "
           + json.dumps({k: round(v, 3) for k, v in mean_stage.items()}))
 
-    # pipelined: phase A waits for its digests, phase B stays in flight
+    # pipelined: no wait for the card inside a batch
     PC.reset_launch_counts()
     secs = pipelined(lambda: ver.verify_batch_async(proofs, inputs), expected, PIPELINED,
                      "PlonK batch")
@@ -1066,8 +1178,7 @@ def run_plonk_batch(batch: int, iters: int):
     require(piped == {k: v * PIPELINED for k, v in want.items()},
             f"pipelined PlonK launches {piped}, expected {want} a batch")
     print(f"PlonK batch pipelined: {PIPELINED} batches through verify_batch_async, bools "
-          f"exact, {want['msm_affine']} / {want['miller_mixed']} / {want['final_exp']} "
-          f"launches of msm_affine / miller_mixed / final_exp a batch; "
+          f"exact, launches a batch {json.dumps({k: v for k, v in want.items() if v})}; "
           f"{batch * PIPELINED / secs:.1f} proofs/s (synchronous: {batch / best:.1f} best, "
           f"{batch * iters / sum(times):.1f} mean)")
     return launches, piped
@@ -1142,7 +1253,8 @@ JAX_BENCH_METRICS = {
     "plonk_single": "plonk_single_verify_latency",
     "kernel_validation": "kernel_validation",  # the JAX bench's pallas_validation
 }
-BENCH_KERNELS = {"groth16_batch": SLICE_KERNELS, "msm": LARGE_MSM_KERNELS}
+BENCH_KERNELS = {"groth16_batch": SLICE_KERNELS, "plonk_batch": PLONK_BATCH_KERNELS,
+                 "mixed": SLICE_KERNELS + PLONK_BATCH_KERNELS, "msm": LARGE_MSM_KERNELS}
 
 
 def run_bench():
@@ -1409,7 +1521,7 @@ def main() -> int:
             "share_of_bound": results[name]["bound_ms"] / results[name]["ms"],
             # no PyTorch call computes a Montgomery product, the G2
             # on-curve mask, an MSM over BN254 (small or bucketed), a
-            # Miller loop or a final exponentiation
+            # Miller loop, a final exponentiation or a PlonK transcript
             "library_ms": None,
             **attrs[name],
             **{k: v for k, v in results[name].items()

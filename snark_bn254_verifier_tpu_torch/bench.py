@@ -88,6 +88,7 @@ KERNEL_VALIDATION_COVERAGE = {
     "miller_final_exp": ("miller_product", "final_exp"),
     "miller_mixed_var": ("miller_mixed", "final_exp"),
     "miller_mixed_fixed_only": ("miller_mixed",),
+    "plonk_lanes": ("plonk_lanes_a", "plonk_lanes_b"),
 }
 
 
@@ -455,11 +456,40 @@ def _kernel_stages(device: str, b: int) -> dict:
         f = PC.miller_mixed(*args)
         return check_gt(f, lambda: PR.miller_mixed(*args), [fixed_pairs(lane) for lane in range(b)])
 
+    def plonk_lanes():
+        """K7a and K7b on PlonK lanes with bad ones (a point not canonical,
+        the early check, a point off the curve, a doubled opening, which
+        passes K7 and fails in the pairing): the valid bits, the scalars
+        of the lanes that pass and zero elsewhere."""
+        from .fixtures.plonk_lanes import plonk_batch_lanes
+        from .models.packing import pack_fr_columns
+        from .ops import plonk_lanes as PL
+        from .utils import serialization as ser
+
+        kinds = ("noncanonical_x", "claimed0", "off_curve", "opening_doubled")
+        bad = {1 + k: kind for k, kind in enumerate(kinds) if 1 + k < b}
+        vec, proofs, inputs, expected = plonk_batch_lanes(b, bad)
+        lvk = PL.LanesVk(ser.load_plonk_verifying_key_from_bytes(vec.vk))
+        raw, valid = PL.pack_proofs(proofs, lvk)
+        raw, pub, valid = dev((raw, pack_fr_columns(inputs, lvk.nb_pub, b), valid))
+        out = PC.plonk_lanes_a(raw, pub, valid, lvk)
+        digest = dev(pack_g1(g1s(b)))
+        rand = dev(pack_fr_columns([[rng.randrange(1, bn.R)] for _ in range(b)], 1, b))[0]
+        sc = PC.plonk_lanes_b(raw, out[0], out[1], rand, digest, lvk)
+        ok = out[0].cpu()
+        return (exact(out, lambda: PL.plonk_lanes_a_plain(raw, pub, valid, lvk))
+                and exact(sc, lambda: PL.plonk_lanes_b_plain(raw, out[0], out[1], rand, digest,
+                                                             lvk))
+                and ok.tolist() == [e or bad.get(i) == "opening_doubled"
+                                    for i, e in enumerate(expected)]
+                and bool(sc[:, :, ok].any()) and not sc[:, :, ~ok].any())
+
     stages = {}
     for name, fn in (("mont_mul", mont_mul), ("g2_on_curve", g2_on_curve), ("msm", msm),
                      ("miller_final_exp", miller_final_exp),
                      ("miller_mixed_var", miller_mixed_var),
-                     ("miller_mixed_fixed_only", miller_mixed_fixed_only)):
+                     ("miller_mixed_fixed_only", miller_mixed_fixed_only),
+                     ("plonk_lanes", plonk_lanes)):
         t0 = time.perf_counter()
         PC.reset_launch_counts()
         try:

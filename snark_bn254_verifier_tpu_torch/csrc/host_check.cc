@@ -2,7 +2,8 @@
 // (tests/test_torch_csrc_host.py): the same headers as kernels.cu, run on
 // the host, so the 16<->32-bit limb conversion, the CIOS and the
 // tower/curve/pairing formulas are checked without a card. K1 and its
-// fused form, the G2 on-curve mask, run lane by lane; the team kernels
+// fused form, the G2 on-curve mask, and K7's lane bodies (SHA-256 and the
+// PlonK lane pass) run lane by lane; the team kernels
 // (K2-K5) and K6's block stages run block by block, each thread of a block as a host thread,
 // meeting at a barrier wherever the card's threads meet at __syncthreads.
 // It is built twice, with each form of the Montgomery product
@@ -12,6 +13,7 @@
 #include <vector>
 
 #include "pippenger.cuh"
+#include "plonk.cuh"
 
 // Runs body(tid, block, smem) for every thread of the grid of a team
 // kernel over n lanes (team threads per lane, lpb lanes per block), one
@@ -229,6 +231,38 @@ int host_miller_product(const int32_t* px, const int32_t* py, const int32_t* qx,
                  [&](int tid, long long block, uint32_t* smem) {
                    miller_product_team(tid, block, smem, px, py, qx, qy, npairs, out, n);
                  });
+  return 0;
+}
+
+// SHA-256 of one message by sha256.cuh's streaming context, from the
+// midstate ``mid`` after ``prefix`` bytes (SHA256_IV when mid is null).
+int host_sha256(const uint8_t* msg, long long len, const uint32_t* mid, long long prefix,
+                uint8_t* out) {
+  sha256_ctx c;
+  sha256_start(c, mid ? mid : SHA256_IV, (uint32_t)prefix);
+  sha256_bytes(c, msg, (int)len);
+  uint32_t d[8];
+  sha256_final(c, d);
+  for (int j = 0; j < 32; ++j) out[j] = (uint8_t)(d[j >> 2] >> (24 - 8 * (j & 3)));
+  return 0;
+}
+
+// K7a and K7b (plonk.cuh) lane by lane over n lanes.
+int host_plonk_lanes_a(const uint8_t* raw, long long L, const int32_t* pub,
+                       const uint8_t* valid_in, const uint32_t* vkc, uint8_t* valid_out,
+                       int32_t* zeta, int32_t* px, int32_t* py, uint8_t* pinf, int32_t* lin,
+                       long long n) {
+  for (long long lane = 0; lane < n; ++lane)
+    plonk_lanes_a_lane(raw, L, pub, valid_in, vkc, valid_out, zeta, px, py, pinf, lin, n, lane);
+  return 0;
+}
+
+int host_plonk_lanes_b(const uint8_t* raw, long long L, const uint8_t* valid,
+                       const int32_t* zeta, const int32_t* rand, const int32_t* dx,
+                       const int32_t* dy, const uint8_t* dinf, const uint32_t* vkc, int32_t* sc,
+                       long long n) {
+  for (long long lane = 0; lane < n; ++lane)
+    plonk_lanes_b_lane(raw, L, valid, zeta, rand, dx, dy, dinf, vkc, sc, n, lane);
   return 0;
 }
 

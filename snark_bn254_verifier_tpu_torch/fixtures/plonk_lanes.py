@@ -20,12 +20,21 @@ KINDS = (
     "other_statement",   # a proof of another vector's statement
     "wrong_count",       # one public input too few
     "extra_claimed",     # one claimed value too many: the parser's count check
+    "noncanonical_x",    # l's x plus p: the same point mod p, but not canonical
+    "claimed_ge_r",      # claimed value 1 plus r: not canonical
+    "off_curve",         # h0's y plus one: canonical, off the curve
 )
 
 
 def _double_g1_at(proof: bytes, off: int) -> bytes:
     pt = ser.uncompressed_to_g1(proof[off:off + 64])
     return proof[:off] + ser.g1_to_bytes(bn.g1_mul(pt, 2)) + proof[off + 64:]
+
+
+def _add_at(proof: bytes, off: int, add: int) -> bytes:
+    """The 32-byte big-endian value at ``off`` plus ``add``."""
+    v = int.from_bytes(proof[off:off + 32], "big") + add
+    return proof[:off] + v.to_bytes(32, "big") + proof[off + 32:]
 
 
 def plonk_batch_lanes(batch: int, bad: dict):
@@ -49,6 +58,9 @@ def plonk_batch_lanes(batch: int, bad: dict):
         "other_statement": lambda: (gen_plonk_vector(1).proof, ins),
         "wrong_count": lambda: (vec.proof, ins[:-1]),
         "extra_claimed": lambda: (extra, ins),
+        "noncanonical_x": lambda: (_add_at(vec.proof, 0, bn.P), ins),
+        "claimed_ge_r": lambda: (_add_at(vec.proof, 516 + 32, bn.R), ins),
+        "off_curve": lambda: (_add_at(vec.proof, 4 * 64 + 32, 1), ins),
     }
     made = {kind: variants[kind]() for kind in set(bad.values())}
     proofs, inputs, expected = [], [], []

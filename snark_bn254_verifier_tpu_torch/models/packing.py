@@ -41,6 +41,16 @@ def pack_fr_canonical(values: Sequence[int]) -> np.ndarray:
     return FR.pack(values, mont=False)
 
 
+def pack_fr_columns(cols, n: int, b: int) -> np.ndarray:
+    """n Fr ints a lane (None: a lane without them, all zero) -> (n, 16, b)
+    canonical limbs (each value mod r), in one packer call."""
+    flat = [0] * (n * b)
+    for lane, col in enumerate(cols):
+        if col is not None:
+            flat[lane::b] = [v % FR.modulus for v in col]
+    return np.ascontiguousarray(pack_fr_canonical(flat).reshape(16, n, b).swapaxes(0, 1))
+
+
 def unpack_fq(arr) -> List[int]:
     return FQ.unpack(np.asarray(arr))
 
@@ -85,24 +95,14 @@ def pack_msm(points, scalars):
              inf[:, None]), np.ascontiguousarray(sc.T[..., None]))
 
 
-def stack_g1(x: torch.Tensor, y: torch.Tensor, inf: torch.Tensor) -> torch.Tensor:
-    """An affine result (x (16, B), y (16, B), inf (B,)) as one (33, B)
-    tensor on its device, so that one copy brings it to the host."""
-    return torch.cat([x, y, inf.to(x.dtype).unsqueeze(0)])
-
-
-def unpack_g1_rows(both: np.ndarray) -> List:
-    """A (33, B) host array of ``stack_g1`` -> oracle points (None =
-    infinity)."""
+def unpack_g1(x: torch.Tensor, y: torch.Tensor, inf: torch.Tensor) -> List:
+    """Affine device result (x (16, B), y (16, B), inf (B,)) -> oracle
+    points (None = infinity), with one device-to-host copy: x, y and the
+    flags stacked as one (33, B) tensor on the device first."""
+    both = torch.cat([x, y, inf.to(x.dtype).unsqueeze(0)]).cpu().numpy()
     b = both.shape[-1]
     xy = unpack_fq(both[:32].reshape(2, NUM_LIMBS, b).transpose(1, 0, 2))
     return [None if both[32, k] else (xy[k], xy[b + k]) for k in range(b)]
-
-
-def unpack_g1(x: torch.Tensor, y: torch.Tensor, inf: torch.Tensor) -> List:
-    """Affine device result (x (16, B), y (16, B), inf (B,)) -> oracle
-    points (None = infinity), with one device-to-host copy."""
-    return unpack_g1_rows(stack_g1(x, y, inf).cpu().numpy())
 
 
 def pack_fq12(values) -> np.ndarray:

@@ -70,6 +70,7 @@ def consts_header() -> str:
         f"#define BN_FQ_N0 0x{FQ.n0inv32:08x}u",
         f"#define BN_FR_N0 0x{FR.n0inv32:08x}u",
         f"#define BN_FQ_PM2_NBITS {(bn.P - 2).bit_length()}",
+        f"#define BN_FR_PM2_NBITS {(bn.R - 2).bit_length()}",
         f"#define BN_MILLER_STEPS {len(MILLER_BITS)}",
         f"#define BN_X_NBITS {len(x_bits)}",
         f"BN_CONST uint32_t FQ_MOD[8] = {{{words(bn.P)}}};",
@@ -78,6 +79,13 @@ def consts_header() -> str:
         f"BN_CONST uint32_t FQ_R3[8] = {{{words(pow(2, 768, bn.P))}}};",
         f"BN_CONST uint32_t FR_MOD[8] = {{{words(bn.R)}}};",
         f"BN_CONST uint32_t FR_ONE[8] = {{{words(FR.r_mod)}}};",
+        "// R^2 (and R^3 for r): a product by them takes a value into Montgomery form",
+        f"BN_CONST uint32_t FQ_R2[8] = {{{words(FQ.r2)}}};",
+        f"BN_CONST uint32_t FR_R2[8] = {{{words(FR.r2)}}};",
+        f"BN_CONST uint32_t FR_R3[8] = {{{words(pow(2, 768, bn.R))}}};",
+        f"BN_CONST uint32_t FR_PM2[8] = {{{words(bn.R - 2)}}};",
+        "// b = 3 of G1: y^2 = x^3 + b, Montgomery form",
+        f"BN_CONST uint32_t G1_B_MONT[8] = {{{words(FQ.to_mont_int(bn.B_G1))}}};",
         "// b' = 3 / XI of the twist E'/Fq2: y^2 = x^3 + b'",
         f"BN_CONST uint32_t TWIST_B[2 * 8] = {{\n  {fq2_words(bn.B_G2)}}};",
         "// gamma_{power,i} = XI^(i (p^power - 1) / 6), power 1..3, i 0..5",
@@ -151,9 +159,11 @@ def team_unit(k: int) -> tuple:
 
 # One nvcc per compiled unit, all started together: (source, defines).
 # team_kernels.cu is built once per team kernel (K2-K5); pippenger.cu is K6,
-# built twice: its stages 1-5 and its combine (pippenger.cu's head comment).
+# built twice: its stages 1-5 and its combine (pippenger.cu's head comment);
+# plonk_kernels.cu is K7, the PlonK batch's lane pass.
 UNITS = ([("kernels.cu", ())] + [team_unit(k) for k in (2, 3, 4, 5)]
-         + [("pippenger.cu", (f"-DBN_PIP_COMBINE={k}",)) for k in (0, 1)])
+         + [("pippenger.cu", (f"-DBN_PIP_COMBINE={k}",)) for k in (0, 1)]
+         + [("plonk_kernels.cu", ())])
 OBJ_DIR = BUILD_DIR / "obj"
 
 
@@ -230,6 +240,8 @@ def bind_kernels(lib_path: Path) -> ctypes.CDLL:
         "bn_msm_pippenger": [_P] * 4 + [_I, _I, _I] + [_P] * 5 + [_N, _P],
         "bn_msm_pippenger_windows": [_P] * 4 + [_I, _I, _I, _P, _P, _N, _P, _P],
         "bn_msm_pippenger_combine": [_P, _I, _I, _P, _P, _P, _N, _P],
+        "bn_plonk_lanes_a": [_P, _N] + [_P] * 9 + [_N, _P],
+        "bn_plonk_lanes_b": [_P, _N] + [_P] * 8 + [_N, _P],
         "bn_mont_mul_attrs": [_P],
         "bn_g2_on_curve_attrs": [_P],
         "bn_msm_affine_attrs": [_P],
@@ -239,6 +251,8 @@ def bind_kernels(lib_path: Path) -> ctypes.CDLL:
         "bn_msm_pippenger_attrs": [_P],
         "bn_msm_pippenger_stage_attrs": [_P],
         "bn_msm_pippenger_combine_attrs": [_P],
+        "bn_plonk_lanes_a_attrs": [_P],
+        "bn_plonk_lanes_b_attrs": [_P],
     }
     for fn, args in sigs.items():
         getattr(lib, fn).argtypes = args
@@ -289,9 +303,13 @@ def load_host_check(rolled: bool = False) -> ctypes.CDLL:
     lib.host_pip_buckets.argtypes = [_P, _P, _I, _I, _I, _P, _N]
     lib.host_pip_reduce.argtypes = [_I, _I, _I, _P, _P, _N]
     lib.host_pip_combine.argtypes = [_P, _I, _I, _P, _P, _P, _N]
+    lib.host_sha256.argtypes = [_P, _N, _P, _N, _P]
+    lib.host_plonk_lanes_a.argtypes = [_P, _N] + [_P] * 9 + [_N]
+    lib.host_plonk_lanes_b.argtypes = [_P, _N] + [_P] * 8 + [_N]
     for fn in ("host_mont_mul", "host_fq_inv", "host_g2_on_curve", "host_fq12_mul",
                "host_msm_affine", "host_miller_mixed", "host_final_exp",
                "host_miller_product", "host_msm_pippenger", "host_pip_sort",
-               "host_pip_buckets", "host_pip_reduce", "host_pip_combine"):
+               "host_pip_buckets", "host_pip_reduce", "host_pip_combine", "host_sha256",
+               "host_plonk_lanes_a", "host_plonk_lanes_b"):
         getattr(lib, fn).restype = _I
     return lib

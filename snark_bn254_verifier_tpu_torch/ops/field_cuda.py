@@ -48,6 +48,28 @@ def launch(dev: torch.device, entry: str, *args) -> None:
         _build.check(lib, code, entry)
 
 
+def on_cpu(*tensors) -> bool:
+    """True where every tensor lies on the CPU (the wrapper runs its plain
+    twin), False where all lie on one CUDA device; raises otherwise."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {devices}")
+    (dev,) = devices
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return False
+
+
+def expect(name: str, t: torch.Tensor, shape, dtype=torch.int32) -> None:
+    """Raise unless ``t`` has this dtype and shape."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
 def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a * b * 2^-256 mod p (or r) over (16, *batch) int32 limbs; the
     batch axes broadcast."""

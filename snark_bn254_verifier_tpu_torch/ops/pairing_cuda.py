@@ -1,5 +1,5 @@
 """Wrappers of the fused K1 and kernels K2-K6 (CUDA), and the port's
-kernel registry.
+kernel registry (K7's wrappers, ops/plonk_cuda.py, are re-exported here).
 
 The counterparts of the entry points of
 snark_bn254_verifier_tpu/ops/pairing_pallas.py, and of the G2 on-curve
@@ -15,6 +15,10 @@ package's parallel/batch.py):
   msm_pippenger   K6, the bucket MSM of ops/msm.py, which is XLA in the
                   JAX package (ops/msm.py::msm_pippenger), with no Pallas
                   original
+  plonk_lanes_a   K7a and K7b, the PlonK batch's per-lane scalar pass,
+  plonk_lanes_b   which the JAX package runs in Python on the host
+                  (parallel/batch.py:575-600, :642-733), with no Pallas
+                  original (ops/plonk_cuda.py)
 
 and, over K5 and K4, the whole pairings ``pairing``, ``pairing_batch``
 and ``pairing_batch_is_one`` of ops/pairing.py.
@@ -44,15 +48,17 @@ from . import msm as M
 from . import pairing as PR
 from . import tower as T
 from ._build import load_kernels
-from .field_cuda import launch, mont_mul
+from .field_cuda import expect as _expect, launch, mont_mul, on_cpu as _on_cpu
 from .lines import STEPS
 from .limbs import NUM_LIMBS
+from .plonk_cuda import plonk_lanes_a, plonk_lanes_b
 
 # Every kernel the port launches; tests/test_torch_kernel_registry.py
 # holds it equal to the wrappers with a launch counter and to the phases
 # of chip_smoke.py, so no kernel ships without an on-card check.
 KERNEL_ENTRY_POINTS = ("mont_mul", "g2_on_curve", "msm_affine", "miller_mixed",
-                       "final_exp", "miller_product", "msm_pippenger")
+                       "final_exp", "miller_product", "msm_pippenger", "plonk_lanes_a",
+                       "plonk_lanes_b")
 
 
 NF_MAX = 2  # fixed pairs whose line tables K3 stages in shared memory
@@ -65,25 +71,6 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for name in KERNEL_ENTRY_POINTS:
         globals()[name].launches = 0
-
-
-def _on_cpu(*tensors) -> bool:
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"tensors on several devices: {devices}")
-    (dev,) = devices
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    return False
-
-
-def _expect(name: str, t: torch.Tensor, shape, dtype=torch.int32):
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
 def _zero_masked(x: torch.Tensor, mask: torch.Tensor, lead: int = 0) -> torch.Tensor:
@@ -355,7 +342,8 @@ msm_pippenger.launches = 0
 
 __all__ = ["KERNEL_ENTRY_POINTS", "mont_mul", "g2_on_curve", "msm_affine", "miller_mixed",
            "final_exp", "miller_product", "msm_pippenger", "msm_pippenger_windows",
-           "msm_pippenger_combine", "launch_counts", "reset_launch_counts"]
+           "msm_pippenger_combine", "plonk_lanes_a", "plonk_lanes_b", "launch_counts",
+           "reset_launch_counts"]
 
 
 def pairing(p_affine, q_affine):

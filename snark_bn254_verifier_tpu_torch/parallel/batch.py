@@ -3,7 +3,7 @@
 The counterpart of snark_bn254_verifier_tpu/parallel/batch.py: its
 ``Groth16BatchVerifier`` (batch.py:125-366 there) and its
 ``PlonkBatchVerifier`` (batch.py:430-733, with ``_plonk_final_kernel``
-:392, ``_batch_inv_mod_r`` :409 and ``_unpack_affine`` :736).
+:392 and ``_unpack_affine`` :736).
 
 Groth16, per batch:
 
@@ -21,22 +21,27 @@ Groth16, per batch:
 As in the JAX package, B is checked to be on the curve but not to be in
 the subgroup.
 
-PlonK, per batch (two device phases with a host step between: the KZG
-fold challenge binds the device-computed linearisation digest,
-plonk/verify.rs:284 -> kzg.rs:46 of the reference):
+PlonK, per batch, with no wait for the card anywhere (the KZG fold
+challenge binds the device-computed linearisation digest,
+plonk/verify.rs:284 -> kzg.rs:46 of the reference, so it is computed on
+the card too):
 
-  1. host: the per-lane parse and count checks, the Fiat-Shamir
-     challenges, one batch inversion mod r for every lane's
-     denominators, the linearisation scalars and the early check of the
-     linearisation constant;
-  2. phase A, device: the linearisation MSM (nb_BSB22 + 10 points),
-     kernel K2, and one copy of the digests back to the host;
-  3. host: the KZG fold challenge gamma (models/kzg.py::derive_gamma)
-     and the randomisers;
-  4. phase B, device (``_plonk_final``): the combo MSM and the quotient
-     MSM, kernel K2; e(combo, [1]_2) * e(-quotient, [x]_2) as a
-     fixed-only Miller product over the VK's line tables, kernel K3, then
-     kernel K4 and the compare against one, ANDed with the validity mask.
+  1. host (numpy, ops/plonk_lanes.py): the proofs joined into one (B, L)
+     byte array and the byte checks (length, the counts of claimed values
+     and commitments, the public-input count), the inputs and one
+     randomiser a surviving lane packed as canonical Fr, one upload;
+  2. kernel K7a (plonk_lanes_a): each lane's points and values decoded and
+     checked, the Fiat-Shamir challenges, BSB22's hash to field, the
+     linearisation scalars and the early check of the linearisation
+     constant;
+  3. phase A: the linearisation MSM (nb_BSB22 + 10 points), kernel K2;
+  4. kernel K7b (plonk_lanes_b): the KZG fold challenge gamma over phase
+     A's digest (models/kzg.py::derive_gamma), its powers, the folded
+     evaluation and the randomiser terms;
+  5. phase B (``_plonk_final``): the combo MSM and the quotient MSM,
+     kernel K2; e(combo, [1]_2) * e(-quotient, [x]_2) as a fixed-only
+     Miller product over the VK's line tables, kernel K3, then kernel K4
+     and the compare against one, ANDed with K7a's validity mask.
 
 PlonK proofs hold only G1 points, so there is no G2 mask. A bad proof
 masks its lane False instead of raising. On a CUDA device every stage
@@ -51,18 +56,16 @@ else K2.
 device bool tensor without waiting for the card, so the caller can parse
 and pack the next batch while this one runs; ``verify_batch`` is that
 call plus one copy to the host. On CUDA each batch in flight runs on a
-stream of its own (``_Ring``: IN_FLIGHT streams taken in turn), each
-phase's host arrays go to the card in one copy, without blocking, from
+stream of its own (``_Ring``: IN_FLIGHT streams taken in turn), its
+host arrays go to the card in one copy, without blocking, from
 that stream's pinned staging buffer, and one event marks the batch's
-end. PlonK keeps its phase-A round trip: the digests come to the host
-for the KZG fold challenge, then phase B is left in flight.
+end.
 """
 
 from __future__ import annotations
 
 import contextlib
 import secrets
-import struct
 import time
 from typing import List, Optional, Sequence
 
@@ -73,18 +76,14 @@ from ..oracle import bn254 as bn
 from ..utils import errors
 from ..utils import native
 from ..utils import serialization as ser
-from ..utils.hash_to_field import WrappedHashToField
 from ..utils.profiling import RunStats
-from ..utils.transcript import ALPHA, BETA, GAMMA, ZETA, Transcript
-from ..models import kzg as kzg_mod
-from ..models import plonk as plonk_mod
 from ..models.torch_backend import resolve_device
-from ..models.packing import (pack_fq12, pack_fr_canonical, pack_g1, pack_g2, packer,
-                              stack_g1, unpack_g1_rows)
+from ..models.packing import pack_fq12, pack_fr_columns, pack_g1, pack_g2, packer
 from ..ops import field as F
 from ..ops import lines as LN
 from ..ops import msm as M
 from ..ops import pairing_cuda as PC
+from ..ops import plonk_lanes as PL
 from ..ops import tower as T
 
 R = bn.R
@@ -260,8 +259,7 @@ class _Flights:
         """Host arrays on the device: on CUDA in one copy, without
         blocking, on the current stream, through the slot's pinned staging
         buffer. The buffer is rewritten, so its previous copy must have
-        ended: the slot's last batch has, and PlonK's phase-A copy ended
-        before its digests were read."""
+        ended: the slot's last batch has."""
         arrays = [np.ascontiguousarray(a) for a in arrays]
         if slot is None:
             return [torch.as_tensor(a, device=self.device) for a in arrays]
@@ -377,8 +375,8 @@ class Groth16BatchVerifier(_Flights):
                 valid[i] = False
                 cols.append(None)
             else:
-                cols.append([1] + [s % R for s in ins])
-        sc = _pack_columns(cols, self.n_inputs + 1, b)
+                cols.append([1, *ins])
+        sc = pack_fr_columns(cols, self.n_inputs + 1, b)
         stages.host("pack_ms")
 
         slot, stream = self._flight()
@@ -453,23 +451,6 @@ def _fixed_points(points, device) -> tuple:
                  for a in (x.T[..., None], y.T[..., None], inf[:, None]))
 
 
-def _batch_inv_mod_r(values: Sequence[int]) -> List[Optional[int]]:
-    """Montgomery-trick inversion mod r of every value with one modular
-    exponentiation for the whole batch; a zero value gives None (its lane
-    is masked False) without spoiling the others."""
-    n = len(values)
-    safe = [v % R or 1 for v in values]
-    prefix = [1] * (n + 1)
-    for i, v in enumerate(safe):
-        prefix[i + 1] = prefix[i] * v % R
-    inv_all = pow(prefix[n], R - 2, R)
-    out: List[Optional[int]] = [None] * n
-    for i in range(n - 1, -1, -1):
-        out[i] = prefix[i] * inv_all % R if values[i] % R else None
-        inv_all = inv_all * safe[i] % R
-    return out
-
-
 def _plonk_final(take, combo_rest, quot, digest, sc, lines, tails, one, valid, stage):
     """Phase B on the device: the combo MSM (the phase-A ``digest``, then
     the rows ``combo_rest`` of ``take``) and the quotient MSM (rows
@@ -501,24 +482,14 @@ class PlonkBatchVerifier(_Flights):
         self.device = resolve_device(device)
         self.vk = ser.load_plonk_verifying_key_from_bytes(vk_bytes)
         vk = self.vk
-        # the domain generator's powers, the same for every lane: w^i for
-        # the public inputs' Lagrange terms (plonk/verify.rs:116-137) and
-        # w^(nb_public + cci) for BSB22 (plonk/verify.rs:147-152)
-        self._w_pows = [1]
-        for _ in range(max(vk.nb_public_variables, 1) - 1):
-            self._w_pows.append(self._w_pows[-1] * vk.generator % R)
-        self._cci_wpow = [
-            pow(vk.generator, vk.nb_public_variables + cci, R)
-            for cci in vk.commitment_constraint_indexes
-        ]
-        # Rows of the phase-A point upload: each lane's proof points, then
-        # the VK's points, packed once and broadcast to the batch.
+        self._lanes_vk = PL.LanesVk(vk)
+        # Rows of phase A's points: each lane's proof points (K7a writes
+        # them), then the VK's points, packed once and broadcast to the batch.
         nb = len(vk.qcp)
         lane_rows = [f"cmt{j}" for j in range(nb)] + [
             "l", "r", "o", "z", "h0", "h1", "h2", "hb", "hs"]
         vk_rows = ["ql", "qr", "qm", "qo", "qk", "s2", "s0", "s1"] + [
             f"qcp{j}" for j in range(nb)] + ["g1"]
-        self._n_lane_rows = len(lane_rows)
         self._vk_points = _fixed_points([vk.ql, vk.qr, vk.qm, vk.qo, vk.qk, vk.s[2], vk.s[0],
                                          vk.s[1], *vk.qcp, vk.kzg.g1], self.device)
         self._one = self._to_dev(pack_fq12([bn.FQ12_ONE]))
@@ -539,6 +510,7 @@ class PlonkBatchVerifier(_Flights):
 
     def _vk_tensors(self) -> None:
         self._kzg_tables()
+        self._lanes_vk.words(self.device)
 
     def _kzg_tables(self):
         """(lines, tails) of the KZG SRS's [1]_2 and [x]_2, both VK-fixed
@@ -552,7 +524,10 @@ class PlonkBatchVerifier(_Flights):
                      rng=None) -> np.ndarray:
         """One bool per proof: True where the proof verifies. ``rng`` draws
         the KZG randomisers (a callable returning a nonzero Fr int), by
-        default from ``secrets``. ``verify_batch_async`` plus one copy to
+        default from ``secrets``: one a lane that passes the host's byte
+        checks, in lane order, before any device stage (the JAX package
+        draws after its host pass, for the lanes still alive; the bools do
+        not depend on the draws). ``verify_batch_async`` plus one copy to
         the host; fills ``last_stats`` (stage times as Groth16's)."""
         run = self._dispatch(proofs, public_inputs, rng)
         ok = run.on_host()
@@ -562,122 +537,60 @@ class PlonkBatchVerifier(_Flights):
     def verify_batch_async(self, proofs: Sequence[bytes],
                            public_inputs: Sequence[Sequence[int]], rng=None) -> torch.Tensor:
         """The (B,) bool tensor of ``verify_batch`` on the verifier's
-        device. It waits for the card once, for the phase-A digests that
-        the KZG fold challenge binds; phase B is left in flight on the
-        batch's stream, which the caller's current stream waits for.
-        Fills ``last_stats`` as Groth16's does (every host stage is known
-        by then)."""
+        device, returned without waiting for the card: both phases and
+        the lane passes between them stay in flight on the batch's stream,
+        which the caller's current stream waits for. Fills ``last_stats``
+        as Groth16's does."""
         run = self._dispatch(proofs, public_inputs, rng)
         self.last_stats = self._stats(len(proofs), None, run.stages, run.stages.host_ms())
         return run.handed_over()
 
     def _dispatch(self, proofs: Sequence[bytes], public_inputs: Sequence[Sequence[int]],
                   rng) -> _Run:
-        vk = self.vk
+        lvk = self._lanes_vk
         b = len(proofs)
         if len(public_inputs) != b:
             raise ValueError("one public-input list per proof")
         stages = _Stages(self.device)
-        valid = np.ones(b, dtype=bool)
-        parsed: List[Optional[ser.PlonkProof]] = []
-        for i, pb in enumerate(proofs):
-            try:
-                proof = ser.load_plonk_proof_from_bytes(pb)
-                if len(proof.bsb22_commitments) != len(vk.qcp):
-                    raise errors.Bsb22CommitmentMismatchError()
-                if len(public_inputs[i]) != vk.nb_public_variables:
-                    raise errors.InvalidWitnessError()
-                # one claimed value per digest of the KZG fold, as
-                # kzg.fold_proof demands on the single-proof path
-                if len(proof.batched_proof.claimed_values) != 6 + len(vk.qcp):
-                    raise errors.InvalidNumberOfDigestsError(6 + len(vk.qcp))
-                parsed.append(proof)
-            except (errors.VerifierError, IndexError, ValueError, struct.error):
-                valid[i] = False
-                parsed.append(None)
+        raw, valid = PL.pack_proofs(proofs, lvk)
+        counted = np.fromiter((len(ins) == lvk.nb_pub for ins in public_inputs), dtype=bool,
+                              count=b)
+        valid &= counted  # InvalidWitnessError otherwise
         stages.host("parse_ms")
-
-        # pass 1: the challenges and every denominator of the lane; one
-        # inversion for the whole batch; pass 2: the rest, products only
-        chs: List[Optional[dict]] = []
-        denoms: List[int] = []
-        for i, proof in enumerate(parsed):
-            ch = None
-            if proof is not None:
-                try:
-                    ch = self._lane_challenges(proof, public_inputs[i])
-                    denoms.extend(ch["denoms"])
-                except errors.VerifierError:
-                    valid[i] = False
-            chs.append(ch)
-        invs = _batch_inv_mod_r(denoms)
-        lanes: List[Optional[dict]] = []
-        pos = 0
-        for i, ch in enumerate(chs):
-            lane = None
-            if ch is not None:
-                k = len(ch["denoms"])
-                lane_invs = invs[pos:pos + k]
-                pos += k
-                try:
-                    if any(v is None for v in lane_invs):
-                        raise errors.InverseNotFoundError()  # zeta on the domain
-                    lane = self._lane_finish(parsed[i], public_inputs[i], ch, lane_invs)
-                except errors.VerifierError:
-                    valid[i] = False
-            lanes.append(lane)
-        stages.host("host_a_ms")
-
-        if not any(lane is not None for lane in lanes):  # no lane reaches the card
+        if not valid.any():  # no lane reaches the card
             return _Run(torch.zeros(b, dtype=torch.bool, device=self.device), stages)
 
-        # phase A: every lane's proof points (each VK point once), the
-        # linearisation scalars; dead lanes carry G1_GEN and scalar 0
-        m = self._n_lane_rows
-        lane_pts = [[bn.G1_GEN] * m if proof is None else
-                    [*proof.bsb22_commitments, *proof.lro, proof.z, *proof.h,
-                     proof.batched_proof.h, proof.z_shifted_opening.h] for proof in parsed]
-        x, y, inf = pack_g1([lp[j] for j in range(m) for lp in lane_pts])
-        pts = (x.reshape(16, m, b).swapaxes(0, 1), y.reshape(16, m, b).swapaxes(0, 1),
-               inf.reshape(m, b))
-        lin_sc = _pack_columns([lane and lane["lin_scalars"] for lane in lanes],
-                               len(self._lin), b)
-        stages.host("pack_a_ms")
+        pub = pack_fr_columns([ins if ok else None for ins, ok in zip(public_inputs, counted)],
+                               lvk.nb_pub, b)
+        rand_fr = rng if rng is not None else (lambda: secrets.randbelow(R - 1) + 1)
+        rand = pack_fr_columns([[rand_fr()] if ok else None for ok in valid], 1, b)[0]
+        stages.host("pack_ms")
 
         slot, stream = self._flight()
         with stream:
             stages.begin()
-            lin_sc, *pts = self._upload(slot, lin_sc, *pts)
-            pts = tuple(torch.cat([a, v.expand(v.shape[:-1] + (b,))])
-                        for a, v in zip(pts, self._vk_points))
+            raw, pub, rand, valid = self._upload(slot, raw, pub, rand, valid)
             lines, tails = self._kzg_tables()
-            stages.device("upload_a_ms")
+            stages.device("upload_ms")
+            # K7a: the lanes' checks, transcripts and linearisation scalars
+            valid, zeta, lane_pts, lin_sc = PC.plonk_lanes_a(raw, pub, valid, lvk)
+            pts = tuple(torch.cat([a, v.expand(v.shape[:-1] + (b,))])
+                        for a, v in zip(lane_pts, self._vk_points))
+            stages.device("lanes_a_ms")
 
             def take(idx):
                 return tuple(t.index_select(0, idx) for t in pts)
 
             digest = M.msm_best(take(self._lin), lin_sc)
             stages.device("msm_a_ms")
-            digests_host = _digests_on_host(digest, slot, stages)
-
-            # host: the KZG fold challenge binds the digest; the randomisers
-            rand_fr = rng if rng is not None else (lambda: secrets.randbelow(R - 1) + 1)
-            cols = [None if lane is None else
-                    self._lane_fold(parsed[i], lane["zeta"], digests_host[i], rand_fr)
-                    for i, lane in enumerate(lanes)]
-            stages.host("host_b_ms")
-            sc = _pack_columns(cols, len(self._combo_rest) + 1 + len(self._quot), b)
-            stages.host("pack_b_ms")
-            stages.begin()
-            sc, tvalid = self._upload(slot, sc, valid)
-            stages.device("upload_b_ms")
-
+            # K7b: the KZG fold challenge binds the digest, on the card
+            sc = PC.plonk_lanes_b(raw, valid, zeta, rand, digest, lvk)
+            stages.device("lanes_b_ms")
             ok = _plonk_final(take, self._combo_rest, self._quot, digest, sc, lines, tails,
-                              self._one, tvalid, stages.device)
+                              self._one, valid, stages.device)
         return _Run(ok, stages, slot)
 
     def _stats(self, b: int, n_valid: Optional[int], stages: _Stages, ms: dict) -> RunStats:
-        host = ("parse_ms", "host_a_ms", "pack_a_ms", "host_b_ms", "pack_b_ms")
         return RunStats(
             protocol="plonk",
             batch_size=b,
@@ -686,130 +599,5 @@ class PlonkBatchVerifier(_Flights):
             n_valid=n_valid,
             pairings_per_proof=2,  # the KZG two-pair batch check (kzg.rs:180-186)
             extra={"device": str(self.device), "packer": packer(), "stage_ms": ms,
-                   "host_s": sum(ms.get(k, 0.0) for k in host) / 1e3},
+                   "host_s": sum(ms.get(k, 0.0) for k in ("parse_ms", "pack_ms")) / 1e3},
         )
-
-    # -- host scalar work (reference plonk/verify.rs:62-279 semantics) ------
-
-    def _lane_challenges(self, proof: ser.PlonkProof, inputs: Sequence[int]) -> dict:
-        """Pass 1: the Fiat-Shamir challenges and every denominator this
-        lane needs inverted (inverted across lanes by the caller)."""
-        vk = self.vk
-        fs = Transcript([GAMMA, BETA, ALPHA, ZETA])
-        plonk_mod.bind_public_data(fs, GAMMA, vk, inputs)
-        gamma = plonk_mod.derive_randomness(fs, GAMMA, list(proof.lro))
-        beta = plonk_mod.derive_randomness(fs, BETA)
-        alpha = plonk_mod.derive_randomness(
-            fs, ALPHA, list(proof.bsb22_commitments) + [proof.z])
-        zeta = plonk_mod.derive_randomness(fs, ZETA, list(proof.h))
-        zeta_n = pow(zeta, vk.size, R)  # vk.size is a power of two
-        denoms = [(zeta - 1) % R]
-        denoms.extend((zeta - w) % R for w in self._w_pows[:len(inputs)])
-        denoms.extend((zeta - w) % R for w in self._cci_wpow)
-        return {"gamma": gamma, "beta": beta, "alpha": alpha, "zeta": zeta,
-                "zeta_n": zeta_n, "denoms": denoms}
-
-    def _lane_finish(self, proof: ser.PlonkProof, inputs: Sequence[int], ch: dict,
-                     invs: Sequence[int]) -> dict:
-        """Pass 2: the remaining Fr algebra, products only; raises
-        OpeningPolyMismatchError where the linearisation constant differs."""
-        vk = self.vk
-        gamma, beta, alpha, zeta = ch["gamma"], ch["beta"], ch["alpha"], ch["zeta"]
-        zeta_n = ch["zeta_n"]
-        zh_zeta = (zeta_n - 1) % R
-        lagrange_one = invs[0] * zh_zeta % R * vk.size_inv % R
-
-        pi = 0
-        for j, w in enumerate(inputs):
-            li = zh_zeta * invs[1 + j] % R * vk.size_inv % R * self._w_pows[j] % R
-            pi = (pi + li * (w % R)) % R
-        htf = WrappedHashToField(plonk_mod.BSB22_DST)
-        base = 1 + len(inputs)
-        for i, w_pow_i in enumerate(self._cci_wpow):
-            htf.write(ser.g1_to_bytes(proof.bsb22_commitments[i]))
-            hashed = int.from_bytes(htf.sum(), "big") % R
-            htf.reset()
-            lagrange = zh_zeta * w_pow_i % R * invs[base + i] % R * vk.size_inv % R
-            pi = (pi + lagrange * hashed) % R
-
-        cv = proof.batched_proof.claimed_values
-        l, r_, o, s1, s2 = cv[1], cv[2], cv[3], cv[4], cv[5]
-        zu = proof.z_shifted_opening.claimed_value
-        alpha_sq_l1 = lagrange_one * alpha % R * alpha % R
-        const_lin = (beta * s1 + gamma + l) % R
-        const_lin = const_lin * ((beta * s2 + gamma + r_) % R) % R
-        const_lin = const_lin * ((o + gamma) % R) % R * alpha % R * zu % R
-        const_lin = (const_lin - alpha_sq_l1 + pi) % R
-        const_lin = (-const_lin) % R
-        if const_lin != cv[0] % R:
-            raise errors.OpeningPolyMismatchError()
-
-        _s1 = (beta * s1 + l + gamma) % R * ((beta * s2 + r_ + gamma) % R) % R
-        _s1 = _s1 * beta % R * alpha % R * zu % R
-        u = vk.coset_shift
-        _s2 = (beta * zeta + gamma + l) % R
-        _s2 = _s2 * ((beta * u % R * zeta + gamma + r_) % R) % R
-        _s2 = _s2 * ((beta * u % R * u % R * zeta + gamma + o) % R) % R
-        _s2 = (-(_s2 * alpha)) % R
-        coeff_z = (alpha_sq_l1 + _s2) % R
-        rl = l * r_ % R
-        zeta_n2 = zeta_n * zeta % R * zeta % R
-        zn2_zh = (-(zeta_n2 * zh_zeta)) % R
-        zn2sq_zh = (-(zeta_n2 * zeta_n2 % R * zh_zeta)) % R
-        zh_neg = (-zh_zeta) % R
-
-        lin_points = list(proof.bsb22_commitments) + [
-            vk.ql, vk.qr, vk.qm, vk.qo, vk.qk, vk.s[2],
-            proof.z, proof.h[0], proof.h[1], proof.h[2],
-        ]
-        qc = [v % R for v in cv[6:]]
-        lin_scalars = qc + [l, r_, rl, o, 1, _s1, coeff_z, zh_neg, zn2_zh, zn2sq_zh]
-        return {"zeta": zeta, "lin_points": lin_points, "lin_scalars": lin_scalars}
-
-    def _lane_fold(self, proof: ser.PlonkProof, zeta: int, lin_digest, rand_fr) -> list:
-        """After phase A: the KZG fold challenge over this lane's digests
-        (models/kzg.py::derive_gamma, bound to the device digest) and one
-        randomiser; returns the combo MSM's scalars, then the quotient
-        MSM's (kzg.rs:87-186 folded into two MSMs)."""
-        vk = self.vk
-        digests = [lin_digest, *proof.lro, vk.s[0], vk.s[1], *vk.qcp]
-        cv = proof.batched_proof.claimed_values
-        zu = proof.z_shifted_opening.claimed_value
-        gamma_fold = kzg_mod.derive_gamma(zeta, digests, cv, ser.fr_to_bytes_be(zu))
-        gpow = [1]
-        for _ in range(len(digests) - 1):
-            gpow.append(gpow[-1] * gamma_fold % R)
-        folded_eval = sum(v * c for v, c in zip(cv, gpow)) % R
-        r_rand = rand_fr()
-        shifted = zeta * vk.generator % R
-        fe_total = (folded_eval + r_rand * zu) % R
-        # combo = sum gpow_i digest_i + r z - fe_total [1]_1 + zeta H_b + r shifted H_s
-        return gpow + [r_rand, (-fe_total) % R, zeta, r_rand * shifted % R, 1, r_rand]
-
-
-def _digests_on_host(digest, slot: Optional[_Slot], stages: _Stages) -> List:
-    """Phase A's affine digests as oracle points, booked to
-    ``digest_copy_ms``: one copy to the host (on CUDA into a pinned buffer
-    on the batch's stream, an event-timed stage, then a wait for this
-    batch alone) and the unpacking (a host lap)."""
-    both = stack_g1(*digest)
-    if slot is not None:
-        host = torch.empty(both.shape, dtype=both.dtype, pin_memory=True)
-        host.copy_(both, non_blocking=True)
-        stages.device("digest_copy_ms")
-        stages.last.synchronize()
-        stages.resume()
-        both = host
-    rows = unpack_g1_rows(both.numpy())
-    stages.host("digest_copy_ms")
-    return rows
-
-
-def _pack_columns(cols, n: int, b: int) -> np.ndarray:
-    """Per-lane lists of n canonical Fr scalars (None: a dead lane, all
-    zero) -> (n, 16, b) limbs, in one packer call."""
-    flat = [0] * (n * b)
-    for lane, col in enumerate(cols):
-        if col is not None:
-            flat[lane::b] = col
-    return pack_fr_canonical(flat).reshape(16, n, b).swapaxes(0, 1)

@@ -32,7 +32,13 @@ throughput table for compute capability 9.0): 64 32-bit integer
 multiply-adds a clock per SM, 132 SMs, 1.98 GHz boost, 3.35 TB/s of
 device memory. One product (csrc/fp.cuh::fp_mul, CIOS on 8 x 32-bit
 limbs) is 264 multiply-adds. Adds, subtracts and selects are not
-counted, so the roofline share is an underestimate.
+counted, so the roofline share is an underestimate. Kernel K7 (the PlonK
+batch's lane pass) also hashes: SHA-256's logic, shifts and adds
+(``SHA256_ALU_PER_COMPRESSION`` a compression times the compressions its
+twins make, ``count_sha256``) run on the integer ALU pipe, 64 a clock per
+SM, beside the multiply-adds on the FMA pipe, 64 a clock too; the four
+schedulers of an SM issue 128 instructions a clock, enough for both, so
+the busier pipe sets the bound.
 """
 
 from __future__ import annotations
@@ -46,6 +52,15 @@ IMAD_PER_S = 64 * 132 * 1.98e9
 # CIOS on 8 x 32-bit limbs (csrc/fp.cuh::fp_mul): 64 a_i b_j and 64 m p_j
 # wide products, each a lo and a hi multiply-add, and 8 m = t0 n0' products
 IMAD_PER_FP_MUL = 2 * (64 + 64) + 8
+ALU_PER_S = 64 * 132 * 1.98e9
+# One SHA-256 compression (FIPS 180-4) in the fewest sm_90 ALU instructions
+# (a rotation is one funnel shift SHF, any three-input logic one LOP3, three
+# words add in one IADD3): 64 rounds of 14 (Sigma1 and Sigma0 3 SHF and a
+# LOP3 each, Ch and Maj a LOP3 each, T1 = h + K + W + Sigma1 + Ch in 2
+# IADD3, e = d + T1, a = T1 + Sigma0 + Maj) and 48 schedule words of 10
+# (sigma0 and sigma1 3 shifts and a LOP3 each, 2 IADD3), then the 8 adds
+# into the state
+SHA256_ALU_PER_COMPRESSION = 64 * 14 + 48 * 10 + 8
 
 
 @contextmanager
@@ -86,15 +101,42 @@ def count_fp_muls(fn) -> int:
     return total[0]
 
 
-def bound(fp_muls: int, nbytes: int) -> dict:
+def count_sha256(fn) -> int:
+    """SHA-256 compressions the plain twins (ops/plonk_lanes.py) make in
+    fn(), a lane each: the hashing kernel K7 does on those inputs."""
+    from ..ops import plonk_lanes as PL
+
+    total = [0]
+    real = PL.sha256_compress
+
+    def counting(h, w):
+        total[0] += w.shape[1]
+        return real(h, w)
+
+    PL.sha256_compress = counting
+    try:
+        fn()
+    finally:
+        PL.sha256_compress = real
+    return total[0]
+
+
+def bound(fp_muls: int, nbytes: int, sha256_compressions: int = 0) -> dict:
     """The least time the card could take for ``fp_muls`` Montgomery
-    products reading and writing ``nbytes``: the larger of integer
-    multiply-add issue and device memory."""
-    ops_ms = fp_muls * IMAD_PER_FP_MUL / IMAD_PER_S * 1e3
+    products and ``sha256_compressions`` compressions reading and writing
+    ``nbytes``: the largest of the multiply-adds on their pipe (264 a
+    product), the ALU instructions on theirs (SHA256_ALU_PER_COMPRESSION
+    a compression) and device memory."""
+    imads = fp_muls * IMAD_PER_FP_MUL
+    alu = sha256_compressions * SHA256_ALU_PER_COMPRESSION
+    ops_ms = max(imads / IMAD_PER_S, alu / ALU_PER_S) * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return {"bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "fp_muls": fp_muls, "imads": fp_muls * IMAD_PER_FP_MUL, "bytes": nbytes}
+    out = {"bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "fp_muls": fp_muls, "imads": imads, "bytes": nbytes}
+    if sha256_compressions:
+        out.update(sha256_compressions=sha256_compressions, alu_ops=alu)
+    return out
 
 
 def pippenger_work(points, scalars, c: int) -> int:
@@ -307,8 +349,9 @@ def lane_mults(verifier_cls, vk: bytes, proof: bytes, public_inputs) -> int:
     """Montgomery products that one lane of a batch verifier computes on
     this proof: a CPU instance of ``verifier_cls`` (parallel/batch.py)
     verifying it once on the plain twins, the per-lane work of the kernels
-    it runs. Its set-up (line tables, e(alpha, beta)) runs on the oracle
-    and is not counted."""
+    it runs (for PlonK, K7's lane pass too: its Fr products and the
+    proof's on-curve checks). Its set-up (line tables, e(alpha, beta),
+    the VK's transcript prefix) is not counted."""
     ver = verifier_cls(vk, device="cpu")
     return count_fp_muls(lambda: ver.verify_batch([proof], [public_inputs]))
 

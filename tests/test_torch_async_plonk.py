@@ -32,9 +32,13 @@ def seeded_rng(seed):
     return lambda: rng.randrange(1, bn.R)
 
 
+N = len(KINDS) + 2
+
+
 def lanes_with_every_kind(shift):
-    """Ten lanes, lane ``shift`` good, every kind of bad lane after it."""
-    return plonk_batch_lanes(10, {(shift + 1 + k) % 10: kind for k, kind in enumerate(KINDS)})
+    """Every kind of bad lane and two good lanes, lane ``shift`` good, the
+    kinds after it."""
+    return plonk_batch_lanes(N, {(shift + 1 + k) % N: kind for k, kind in enumerate(KINDS)})
 
 
 def test_plonk_stream_two_in_flight():
@@ -50,6 +54,27 @@ def test_plonk_stream_two_in_flight():
     assert isinstance(sync, np.ndarray) and sync.tolist() == first.tolist()
     assert second.tolist() == b2[3]
     assert sum(b1[3]) == 2 and b1[3] != b2[3]
+
+
+def test_no_host_copy_between_the_phases(monkeypatch):
+    """verify_batch_async goes from phase A to phase B through K7b alone
+    (its twin here): the stages in order, no digest copy among them, and no
+    tensor read back to the host (``.cpu``, ``.numpy``, ``.tolist``,
+    ``.item`` raise) before the bools are handed over."""
+    vec, proofs, inputs, expected = lanes_with_every_kind(0)
+    ver = PlonkBatchVerifier(vec.vk, device="cpu")
+
+    def no_copy(self, *args, **kwargs):
+        raise AssertionError("a tensor was copied to the host inside the dispatch")
+
+    with monkeypatch.context() as m:
+        for name in ("cpu", "numpy", "tolist", "item"):
+            m.setattr(torch.Tensor, name, no_copy)
+        ok = ver.verify_batch_async(proofs, inputs, rng=seeded_rng(5))
+    assert list(ver.last_stats.extra["stage_ms"]) == [
+        "parse_ms", "pack_ms", "upload_ms", "lanes_a_ms", "msm_a_ms", "lanes_b_ms", "msm_b_ms",
+        "miller_ms", "final_exp_ms", "compare_ms"]
+    assert ok.tolist() == expected
 
 
 @pytest.mark.slow  # the JAX verifier's XLA:CPU MSM and pairing compiles

@@ -21,6 +21,7 @@ from snark_bn254_verifier_tpu.oracle import bn254 as bn
 from snark_bn254_verifier_tpu_torch.fixtures.g2_lanes import g2_mask_lanes
 from snark_bn254_verifier_tpu_torch.models.packing import (
     pack_fq12,
+    pack_fr_columns,
     pack_g1,
     pack_g2,
     pair_major,
@@ -562,3 +563,58 @@ def test_pippenger_combine_sums_k_sets_of_window_sums(lib, lib_rolled, k):
     union = oracle_msm_lanes([row for lanes, _ in sets for row in lanes],
                              [row for _, scal in sets for row in scal])
     assert [None if oinf[i] else (xs[i], ys[i]) for i in range(b)] == union
+
+
+def host_plonk_lanes(lib, raw, pub, valid, lvk):
+    """K7a then K7b (csrc/plonk.cuh) lane by lane on the host build: K7a's
+    outputs and K7b's scalars over a seeded digest a lane (lane 0's at
+    infinity) and seeded randomisers, with those inputs."""
+    from snark_bn254_verifier_tpu_torch.ops import plonk_lanes as PL
+
+    b, m = raw.shape[0], lvk.nb + 9
+    words = torch.as_tensor(lvk.blob().view(np.int32))
+    ok = torch.zeros(b, dtype=torch.bool)
+    zeta = torch.zeros((16, b), dtype=torch.int32)
+    px, py = torch.zeros((m, 16, b), dtype=torch.int32), torch.zeros((m, 16, b), dtype=torch.int32)
+    pinf = torch.zeros((m, b), dtype=torch.bool)
+    lin = torch.zeros((lvk.nb + 10, 16, b), dtype=torch.int32)
+    assert lib.host_plonk_lanes_a(ptr(raw), lvk.proof_len, ptr(pub), ptr(valid), ptr(words),
+                                  ptr(ok), ptr(zeta), ptr(px), ptr(py), ptr(pinf), ptr(lin),
+                                  b) == 0
+    rng = random.Random(9)
+    digests = [None] + [bn.g1_mul(bn.G1_GEN, rng.randrange(1, bn.R)) for _ in range(b - 1)]
+    dx, dy, dinf = (c_tensor(a) for a in pack_g1(digests))
+    rand = c_tensor(pack_fr_columns([[rng.randrange(1, bn.R)] for _ in range(b)], 1, b)[0])
+    sc = torch.zeros((lvk.nb + 12, 16, b), dtype=torch.int32)
+    assert lib.host_plonk_lanes_b(ptr(raw), lvk.proof_len, ptr(ok), ptr(zeta), ptr(rand),
+                                  ptr(dx), ptr(dy), ptr(dinf), ptr(words), ptr(sc), b) == 0
+    return (ok, zeta, (px, py, pinf), lin), ((dx, dy, dinf), rand, sc)
+
+
+def test_plonk_lanes_host_build_equals_plain_twins(lib):
+    """K7a and K7b's lane bodies built by g++, on a lane of every kind of
+    fixtures/plonk_lanes.py (the new non-canonical and off-curve kinds
+    among them): every output limb for limb equal to their plain twins
+    (which tests/test_torch_plonk_lanes.py holds against the JAX
+    package's host passes), the valid bits the expected verdicts but the
+    doubled openings', which fail in the pairing."""
+    from snark_bn254_verifier_tpu_torch.fixtures.plonk_lanes import KINDS, plonk_batch_lanes
+    from snark_bn254_verifier_tpu_torch.ops import plonk_lanes as PL
+    from snark_bn254_verifier_tpu_torch.utils import serialization as ser
+
+    bad = {1 + k: kind for k, kind in enumerate(KINDS)}
+    vec, proofs, inputs, expected = plonk_batch_lanes(len(KINDS) + 2, bad)
+    lvk = PL.LanesVk(ser.load_plonk_verifying_key_from_bytes(vec.vk))
+    raw, valid = PL.pack_proofs(proofs, lvk)
+    counted = np.array([len(ins) == lvk.nb_pub for ins in inputs])
+    pub = pack_fr_columns([ins if c else None for ins, c in zip(inputs, counted)],
+                           lvk.nb_pub, len(proofs))
+    raw, pub, valid = c_tensor(raw), c_tensor(pub), c_tensor(valid & counted)
+    (ok, zeta, pts, lin), (digest, rand, sc) = host_plonk_lanes(lib, raw, pub, valid, lvk)
+    t_ok, t_zeta, t_pts, t_lin = PL.plonk_lanes_a_plain(raw, pub, valid, lvk)
+    assert torch.equal(ok, t_ok) and torch.equal(zeta, t_zeta) and torch.equal(lin, t_lin)
+    assert all(torch.equal(a, b) for a, b in zip(pts, t_pts))
+    doubled = [i for i, k in bad.items() if k in ("opening_doubled", "shifted_doubled")]
+    assert ok.tolist() == [e or i in doubled for i, e in enumerate(expected)]
+    assert torch.equal(sc, PL.plonk_lanes_b_plain(raw, ok, zeta, rand, digest, lvk))
+    assert sc[:, :, ok].any() and not sc[:, :, ~ok].any()

@@ -191,9 +191,10 @@ def test_slice_on_cuda(cuda):
 
 def test_plonk_batch_on_cuda(cuda):
     """The PlonK batch at B lanes, one bad lane of each kind spread over
-    it: the exact bools, three K2 launches, one fixed-only K3, one K4 and
-    nothing else, and the first 8 lanes equal to the CPU run."""
-    bad = {3 + 4 * k: kind for k, kind in enumerate(KINDS)}
+    it: the exact bools, one launch each of K7a and K7b, three K2 launches,
+    one fixed-only K3, one K4 and nothing else, and the first 8 lanes equal
+    to the CPU run."""
+    bad = {3 + 2 * k: kind for k, kind in enumerate(KINDS)}
     vec, proofs, inputs, expected = plonk_batch_lanes(B, bad)
     ver = PlonkBatchVerifier(vec.vk, device="cuda")
     rng = random.Random(66)
@@ -202,7 +203,7 @@ def test_plonk_batch_on_cuda(cuda):
     assert ok.tolist() == expected
     assert PC.launch_counts() == {"mont_mul": 0, "g2_on_curve": 0, "msm_affine": 3,
                                   "miller_mixed": 1, "final_exp": 1, "miller_product": 0,
-                                  "msm_pippenger": 0}
+                                  "msm_pippenger": 0, "plonk_lanes_a": 1, "plonk_lanes_b": 1}
     cpu = PlonkBatchVerifier(vec.vk, device="cpu").verify_batch(proofs[:8], inputs[:8])
     assert cpu.tolist() == ok[:8].tolist()
 
@@ -296,7 +297,7 @@ def test_verify_batch_async_pipelined_on_cuda(cuda):
     """Groth16 and PlonK batches, two in flight on their streams: the exact
     bools on every batch, and per batch one launch each of g2_on_curve,
     msm_affine, miller_mixed and final_exp (Groth16), three msm_affine, one
-    miller_mixed and one final_exp (PlonK)."""
+    miller_mixed, one final_exp and one each of K7a and K7b (PlonK)."""
     from snark_bn254_verifier_tpu_torch.fixtures.groth16_lanes import groth16_batch_lanes
 
     vec, proofs, inputs, expected = groth16_batch_lanes(B)
@@ -312,9 +313,9 @@ def test_verify_batch_async_pipelined_on_cuda(cuda):
     n = 4
     assert PC.launch_counts() == {"mont_mul": 0, "g2_on_curve": n, "msm_affine": n,
                                   "miller_mixed": n, "final_exp": n, "miller_product": 0,
-                                  "msm_pippenger": 0}
+                                  "msm_pippenger": 0, "plonk_lanes_a": 0, "plonk_lanes_b": 0}
 
-    bad = {3 + 4 * k: kind for k, kind in enumerate(KINDS)}
+    bad = {3 + 2 * k: kind for k, kind in enumerate(KINDS)}
     vec, proofs, inputs, expected = plonk_batch_lanes(B, bad)
     ver = PlonkBatchVerifier(vec.vk, device="cuda")
     PC.reset_launch_counts()
@@ -325,4 +326,35 @@ def test_verify_batch_async_pipelined_on_cuda(cuda):
     assert second.cpu().tolist() == expected
     assert PC.launch_counts() == {"mont_mul": 0, "g2_on_curve": 0, "msm_affine": 9,
                                   "miller_mixed": 3, "final_exp": 3, "miller_product": 0,
-                                  "msm_pippenger": 0}
+                                  "msm_pippenger": 0, "plonk_lanes_a": 3, "plonk_lanes_b": 3}
+
+
+@pytest.mark.parametrize("b", [1, 37])
+def test_plonk_lanes_kernels_equal_plain(cuda, b):
+    """K7a and K7b against their plain twins on the same CUDA tensors, a
+    lane of every kind (37 lanes: a ragged second block; 1: one lane),
+    exact; then the valid bits against the expected verdicts."""
+    from snark_bn254_verifier_tpu_torch.models.packing import pack_fr_columns
+    from snark_bn254_verifier_tpu_torch.ops import plonk_lanes as PL
+    from snark_bn254_verifier_tpu_torch.utils import serialization as ser
+
+    bad = {1 + k: kind for k, kind in enumerate(KINDS) if 1 + k < b}
+    vec, proofs, inputs, expected = plonk_batch_lanes(b, bad)
+    lvk = PL.LanesVk(ser.load_plonk_verifying_key_from_bytes(vec.vk))
+    raw, valid = PL.pack_proofs(proofs, lvk)
+    counted = np.array([len(ins) == lvk.nb_pub for ins in inputs])
+    pub = pack_fr_columns([ins if c else None for ins, c in zip(inputs, counted)], lvk.nb_pub, b)
+    raw, pub, valid = on(cuda, (raw, pub, valid & counted))
+    got = PC.plonk_lanes_a(raw, pub, valid, lvk)
+    want = PL.plonk_lanes_a_plain(raw, pub, valid, lvk)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:2] + got[2] + got[3:], want[:2] + want[2] + want[3:]):
+        assert torch.equal(g, w)
+    doubled = [i for i, k in bad.items() if k in ("opening_doubled", "shifted_doubled")]
+    assert got[0].cpu().tolist() == [e or i in doubled for i, e in enumerate(expected)]
+    rng = random.Random(b)
+    digest = on(cuda, pack_g1([None] + points(rng, b - 1)))
+    rand = torch.as_tensor(pack_fr_columns([[rng.randrange(1, bn.R)] for _ in range(b)], 1, b)[0],
+                           device=cuda)
+    sc = PC.plonk_lanes_b(raw, got[0], got[1], rand, digest, lvk)
+    assert torch.equal(sc, PL.plonk_lanes_b_plain(raw, got[0], got[1], rand, digest, lvk))

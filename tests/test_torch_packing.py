@@ -19,7 +19,6 @@ from snark_bn254_verifier_tpu_torch.ops.limbs import (
     limbs_batch_to_ints,
 )
 from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
-from snark_bn254_verifier_tpu_torch.parallel.batch import _pack_columns
 from snark_bn254_verifier_tpu_torch.utils import native
 
 EDGES = [0, 1, 2, bn.P - 1, bn.R - 1, bn.R, bn.P, (1 << 256) - 1, 1 << 255]
@@ -168,11 +167,13 @@ def test_pack_and_unpack_fq12_equal_per_component_path():
 
 
 def test_pack_columns_equals_per_column_packing():
-    """The batch verifiers' scalar columns: lane k's list as column k,
-    dead lanes (None) all zero, in one packer call."""
+    """The batch verifiers' scalar columns (models/packing.py::
+    pack_fr_columns): lane k's list as column k, each value mod r, dead
+    lanes (None) all zero, in one packer call, contiguous."""
     rng = random.Random(10)
-    cols = [[rng.randrange(bn.R) for _ in range(4)], None, [1, 0, bn.R - 1, 2]]
-    got = _pack_columns(cols, 4, 3)
-    assert got.shape == (4, 16, 3)
+    cols = [[rng.randrange(bn.R) for _ in range(4)], None, [1, 0, bn.R - 1, 2],
+            [bn.R, bn.R + 3, -1, 2 * bn.R - 1]]
+    got = PK.pack_fr_columns(cols, 4, 4)
+    assert got.shape == (4, 16, 4) and got.flags["C_CONTIGUOUS"]
     for j in range(4):
-        assert np.array_equal(got[j], old_limbs([c[j] if c else 0 for c in cols]))
+        assert np.array_equal(got[j], old_limbs([c[j] % bn.R if c else 0 for c in cols]))

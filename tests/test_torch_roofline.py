@@ -169,3 +169,73 @@ def test_count_leaves_pow_const_as_it_was():
     PR._count(lambda: None)
     PR.count_fp_muls(lambda: None)
     assert F.pow_const is real
+
+
+def test_bound_puts_sha256_on_the_alu_pipe():
+    """K7's bound: 1,384 ALU instructions a SHA-256 compression (64 rounds
+    of 14, 48 schedule words of 10, 8 adds) on the ALU pipe beside the
+    products' 264 multiply-adds a product on theirs, each at 64 a clock
+    per SM: the busier pipe sets it; the bytes as before."""
+    assert PR.SHA256_ALU_PER_COMPRESSION == 1_384
+    assert PR.ALU_PER_S == PR.IMAD_PER_S
+    got = PR.bound(504 * 1024, 1024 * 1_200, sha256_compressions=17 * 1024)  # K7a's mix
+    assert got["bound_ms"] == pytest.approx(504 * 1024 * 264 / PR.IMAD_PER_S * 1e3, rel=1e-12)
+    assert got["bound_by"] == "operations" and got["alu_ops"] == 17 * 1024 * 1_384
+    assert got["sha256_compressions"] == 17 * 1024 and got["imads"] == 504 * 1024 * 264
+    got = PR.bound(36 * 1024, 1024 * 1_200, sha256_compressions=12 * 1024)  # K7b's
+    assert got["bound_ms"] == pytest.approx(12 * 1024 * 1_384 / PR.ALU_PER_S * 1e3, rel=1e-12)
+    assert "alu_ops" not in PR.bound(7, 0)
+    assert PR.bound(0, 3_350, sha256_compressions=1)["bound_by"] == "bytes"
+
+
+@pytest.fixture(scope="module")
+def plonk_lane():
+    """One lane of the bench's PlonK vector through K7a's twin: (args of
+    K7a, its outputs, the LanesVk)."""
+    from snark_bn254_verifier_tpu_torch.fixtures.gen import gen_plonk_vector
+    from snark_bn254_verifier_tpu_torch.models.packing import pack_fr_columns
+    from snark_bn254_verifier_tpu_torch.ops import plonk_lanes as PL
+    from snark_bn254_verifier_tpu_torch.utils import serialization as ser
+
+    vec = gen_plonk_vector(0)
+    lvk = PL.LanesVk(ser.load_plonk_verifying_key_from_bytes(vec.vk))
+    raw, valid = PL.pack_proofs([vec.proof], lvk)
+    pub = pack_fr_columns([vec.public_inputs], lvk.nb_pub, 1)
+    args = (torch.as_tensor(raw), torch.as_tensor(pub), torch.as_tensor(valid), lvk)
+    return vec, args, PL.plonk_lanes_a_plain(*args)
+
+
+def test_k7_work_of_the_bench_plonk_lane(plonk_lane):
+    """A lane of K7a: 504 products (50 for the proof's ten on-curve checks,
+    382 for the one Fermat inversion) and 17 compressions (gamma 5 past
+    the VK's midstate, beta 1, alpha 3, zeta 4, BSB22's hash 4); K7b: 36
+    products and the fold's 12 compressions."""
+    from snark_bn254_verifier_tpu_torch.models.packing import pack_fr_columns
+    from snark_bn254_verifier_tpu_torch.ops import plonk_lanes as PL
+
+    vec, args, (ok, zeta, (px, py, _), _) = plonk_lane
+    assert ok.tolist() == [True]
+    assert PR.count_fp_muls(lambda: PL.plonk_lanes_a_plain(*args)) == 504
+    assert PR.count_sha256(lambda: PL.plonk_lanes_a_plain(*args)) == 17
+    digest = (px[0], py[0], torch.zeros(1, dtype=torch.bool))
+    rand = torch.as_tensor(pack_fr_columns([[5]], 1, 1)[0])
+
+    def fold():
+        return PL.plonk_lanes_b_plain(args[0], ok, zeta, rand, digest, args[3])
+
+    real = PL.sha256_compress
+    assert PR.count_fp_muls(fold) == 36 and PR.count_sha256(fold) == 12
+    assert PL.sha256_compress is real
+
+
+def test_lane_mults_of_the_bench_plonk_proof(plonk_lane, monkeypatch):
+    """One lane of the bench's PlonK proof, its randomiser fixed at
+    2^200 + 17 (K2 skips zero windows, so the count moves with it): 58,070
+    products on the twins: 57,530 of K2, K3 and K4, and K7's 540 (the
+    lane pass that the card now runs)."""
+    from snark_bn254_verifier_tpu_torch.parallel import batch
+
+    vec = plonk_lane[0]
+    monkeypatch.setattr(batch.secrets, "randbelow", lambda n: (1 << 200) + 16)
+    got = PR.lane_mults(batch.PlonkBatchVerifier, vec.vk, vec.proof, vec.public_inputs)
+    assert got == 57_530 + 504 + 36 == 58_070
