@@ -25,8 +25,10 @@ It builds the port's CUDA kernels from csrc/, then
      sides of msm_best's switch; K7a and K7b (the PlonK batch's lane
      pass) on the PlonK batch's own 1024 lanes, a bad lane of every kind
      among them, bit for bit against their twins, K7a's valid bits against
-     the verdicts; and computes each kernel's bound from the work its twin
-     counts (for K7 its products and SHA-256 compressions);
+     the verdicts, with its registers, local and shared bytes and warps
+     and lanes a block; and computes each kernel's bound from the work its
+     twin counts (for K7 its products and SHA-256 compressions, its Fermat
+     inversion charged as the kernel's cheaper divsteps);
   2. drives the batched Groth16 path, ``Groth16BatchVerifier(vk,
      device="cuda")`` on a batch of 1024 proofs of the bench vector with
      bad lanes at fixed positions, checks the exact bool vector and that
@@ -43,7 +45,9 @@ It builds the port's CUDA kernels from csrc/, then
      each batch path then runs PIPELINED batches through
      ``verify_batch_async``, at most two in flight, with the exact bools
      and the same launches on every batch, and prints the rate beside the
-     synchronous one;
+     synchronous one, the host's wait for the bools (``bools_wait``, in
+     the loop and in the drain) and, from the same loop run once more
+     under torch.profiler after the counted run, the card's idle share;
   4. drives the single-proof path, ``Groth16Verifier.verify`` and
      ``PlonkVerifier.verify`` with ``device="cuda"``, on a good proof, a
      wrong input value, a wrong input count, a corrupted proof byte and,
@@ -89,7 +93,7 @@ import time
 
 # The card's model (peaks, products a Montgomery multiply, bounds) is the
 # port's utils/roofline.py, which the bench's roofline fields use too.
-from snark_bn254_verifier_tpu_torch.utils.roofline import (bound, count_fp_muls, count_sha256,
+from snark_bn254_verifier_tpu_torch.utils.roofline import (bound, count_fp_muls, lane_pass_work,
                                                            pippenger_work)
 
 BATCH = 1024  # proofs per batch, the batch the repo's bench verifies
@@ -102,7 +106,9 @@ SOURCE = {"mont_mul": CSRC + "fp.cuh", "g2_on_curve": CSRC + "curve.cuh",
           "miller_mixed": CSRC + "team.cuh", "final_exp": CSRC + "team.cuh",
           "miller_product": CSRC + "team.cuh", "msm_pippenger": CSRC + "pippenger.cuh",
           "plonk_lanes_a": CSRC + "plonk.cuh", "plonk_lanes_b": CSRC + "plonk.cuh"}
-# run on a team of threads per lane (K7 on teams of one: a thread a lane)
+# run on a team of threads per lane (K7: a thread a lane in each warp of
+# its block, a warp a role over the block's lanes, so its threads a lane
+# are its warps a block)
 TEAM_KERNELS = ("msm_affine", "miller_mixed", "final_exp", "miller_product", "plonk_lanes_a",
                 "plonk_lanes_b")
 PALLAS = "snark_bn254_verifier_tpu/ops/"
@@ -987,16 +993,25 @@ def plonk_lanes_results(ctx):
             ms, timed_by = time_graph(c_entry, 1000), "cuda graph"
         require(all(torch.equal(g, w) for g, w in pairs), f"{name} changed under the timed launches")
         lane = one_lane(args)
-        fp_muls = count_fp_muls(lambda: twin(*lane)) * b  # the same work on every lane
-        comps = count_sha256(lambda: twin(*lane)) * b
+        # the work the kernel needs (the twin's, its Fermat inversion
+        # charged as the kernel's divsteps), the same on every lane
+        work = lane_pass_work(lambda: twin(*lane))
         if name == "plonk_lanes_a":  # each input read once, each output written once
             moved = nbytes(*args[:3], *flat(got))
         else:
             moved = nbytes(*args[:4], *args[4], got)
-        bnd = bound(fp_muls, moved + nbytes(args[-1].words(ctx.dev)), sha256_compressions=comps)
+        bnd = bound(work["fp_muls"] * b, moved + nbytes(args[-1].words(ctx.dev)),
+                    sha256_compressions=work["sha256_compressions"] * b,
+                    fr_inversions=work["fr_inversions"] * b)
+        attrs = kernel_attrs(lib, (name,))[name]
         print(f"K7 {name} B={b}: exact vs plain ({sum(want_ok)} lanes valid after K7a); kernel "
-              f"{ms:.5f} ms ({timed_by}), plain {plain_ms:.1f} ms, bound {bnd['bound_ms']:.5f} ms "
-              f"({bnd['bound_by']}: {fp_muls // b} products, {comps // b} compressions a lane)")
+              f"{ms:.5f} ms ({timed_by}), plain {plain_ms:.1f} ms, bound {bnd['bound_ms']:.6f} ms "
+              f"({bnd['bound_by']}: {work['fp_muls']} products, "
+              f"{work['sha256_compressions']} compressions, {work['fr_inversions']} divsteps "
+              f"inverses a lane); {attrs['registers']} registers, {attrs['stack_bytes']} "
+              f"local bytes, {attrs['shared_bytes_per_block']} shared bytes a block, "
+              f"{attrs['team']['threads_per_lane']} warps (a thread a lane in each) over "
+              f"{attrs['team']['lanes_per_block']} lanes a block")
         out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "timed_by": timed_by,
                      "shape": [b, args[-1].proof_len], **bnd}
     ctx.plonk_lanes = out
@@ -1035,20 +1050,53 @@ UNLAUNCHED = ("mont_mul",)
 PIPELINED = 8  # batches of each pipelined loop, at most two in flight (bench.py:105-116)
 
 
-def pipelined(dispatch, expected, batches: int, what: str) -> float:
+def pipelined(dispatch, expected, batches: int, what: str):
     """``batches`` calls of ``dispatch`` (a verify_batch_async), at most two
     in flight: the third is dispatched before the first is read, as the
     JAX package's bench does. Every batch's bools must equal ``expected``.
-    Returns the seconds of the loop."""
-    pending = []
+    Returns the seconds of the loop and the host's ms reading the bools
+    (``bools_wait``), the mean of the reads in the loop (batch n-2, read
+    after batch n's dispatch: with the hand-over of
+    parallel/batch.py::HandedOver it waits for batch n-2 alone) and of
+    the last two reads (the drain: those batches still run)."""
+    pending, waits = [], []
+
+    def read(ok):
+        t = time.perf_counter()
+        bools = ok.cpu().tolist()
+        waits.append((time.perf_counter() - t) * 1e3)
+        require(bools == expected, f"{what}: a pipelined batch's bools")
+
     t0 = time.perf_counter()
     for _ in range(batches):
         pending.append(dispatch())
         if len(pending) > 2:
-            require(pending.pop(0).cpu().tolist() == expected, f"{what}: a pipelined batch's bools")
+            read(pending.pop(0))
     for ok in pending:
-        require(ok.cpu().tolist() == expected, f"{what}: a pipelined batch's bools")
-    return time.perf_counter() - t0
+        read(ok)
+    secs = time.perf_counter() - t0
+    loop, drain = waits[:-2], waits[-2:]
+    return secs, {"loop": sum(loop) / max(len(loop), 1), "drain": sum(drain) / len(drain)}
+
+
+def idle_share(dispatch, expected, batches: int, what: str) -> dict:
+    """The same loop under torch.profiler, after the counted run: its wall
+    clock, the union of the trace's kernel intervals (the time at least
+    one kernel ran, whatever the two streams overlap; pipeline_probe.py)
+    and so the card's idle share of the wall clock."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from snark_bn254_verifier_tpu_torch.pipeline_probe import busy_ms, device_intervals
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall_ms = pipelined(dispatch, expected, batches, what)[0] * 1e3
+    spans = device_intervals(prof)
+    kernels, busy = busy_ms(spans["kernels"]), busy_ms(spans["all"])
+    require(spans["kernels"], f"{what}: the profiled loop traced no kernel")
+    return {"wall_ms": wall_ms, "kernels_ms": kernels, "device_busy_ms": busy,
+            "idle_pct": 100 * (1 - busy / wall_ms)}
 
 
 def run_slice(batch: int, iters: int):
@@ -1098,16 +1146,22 @@ def run_slice(batch: int, iters: int):
     print("slice stage ms (mean): " + json.dumps({k: round(v, 3) for k, v in mean_stage.items()}))
 
     # pipelined: verify_batch_async, two batches in flight on their streams
+    def dispatch():
+        return ver.verify_batch_async(proofs, inputs)
+
     PC.reset_launch_counts()
-    secs = pipelined(lambda: ver.verify_batch_async(proofs, inputs), expected, PIPELINED,
-                     "slice")
+    secs, bools_wait = pipelined(dispatch, expected, PIPELINED, "slice")
     piped = PC.launch_counts()
     want = {name: PIPELINED if name in SLICE_KERNELS else 0 for name in PC.KERNEL_ENTRY_POINTS}
     require(piped == want, f"pipelined slice launches {piped}, expected {want}")
+    idle = idle_share(dispatch, expected, PIPELINED, "slice")
     print(f"slice pipelined: {PIPELINED} batches through verify_batch_async, bools exact, "
           f"one launch each of {', '.join(SLICE_KERNELS)} a batch; "
           f"{batch * PIPELINED / secs:.1f} proofs/s (synchronous: {batch / best:.1f} best, "
-          f"{batch * iters / sum(times):.1f} mean)")
+          f"{batch * iters / sum(times):.1f} mean); bools_wait {bools_wait['loop']:.3f} ms a "
+          f"read in the loop, {bools_wait['drain']:.3f} in the drain; "
+          f"profiled again: wall {idle['wall_ms']:.3f} ms, kernels running "
+          f"{idle['kernels_ms']:.3f} ms, the card idle {idle['idle_pct']:.1f}%")
     return launches, piped
 
 
@@ -1171,16 +1225,22 @@ def run_plonk_batch(batch: int, iters: int):
           + json.dumps({k: round(v, 3) for k, v in mean_stage.items()}))
 
     # pipelined: no wait for the card inside a batch
+    def dispatch():
+        return ver.verify_batch_async(proofs, inputs)
+
     PC.reset_launch_counts()
-    secs = pipelined(lambda: ver.verify_batch_async(proofs, inputs), expected, PIPELINED,
-                     "PlonK batch")
+    secs, bools_wait = pipelined(dispatch, expected, PIPELINED, "PlonK batch")
     piped = PC.launch_counts()
     require(piped == {k: v * PIPELINED for k, v in want.items()},
             f"pipelined PlonK launches {piped}, expected {want} a batch")
+    idle = idle_share(dispatch, expected, PIPELINED, "PlonK batch")
     print(f"PlonK batch pipelined: {PIPELINED} batches through verify_batch_async, bools "
           f"exact, launches a batch {json.dumps({k: v for k, v in want.items() if v})}; "
           f"{batch * PIPELINED / secs:.1f} proofs/s (synchronous: {batch / best:.1f} best, "
-          f"{batch * iters / sum(times):.1f} mean)")
+          f"{batch * iters / sum(times):.1f} mean); bools_wait {bools_wait['loop']:.3f} ms a "
+          f"read in the loop, {bools_wait['drain']:.3f} in the drain; "
+          f"profiled again: wall {idle['wall_ms']:.3f} ms, kernels running "
+          f"{idle['kernels_ms']:.3f} ms, the card idle {idle['idle_pct']:.1f}%")
     return launches, piped
 
 
@@ -1438,17 +1498,19 @@ def run_single(iters: int):
     return launches, per_call
 
 
-def kernel_attrs(lib) -> dict:
+def kernel_attrs(lib, names=None) -> dict:
     """Registers, stack (local) bytes and shared bytes per thread block of
-    each kernel, from cudaFuncGetAttributes; the team kernels K2-K5 also
-    report their team shape (csrc/msm.cuh, csrc/team.cuh)."""
+    each kernel (of ``names``, by default all), from cudaFuncGetAttributes
+    (K7's dynamic shared bytes its last launch's); the team kernels K2-K5
+    and K7 also report their team shape (csrc/msm.cuh, csrc/team.cuh,
+    csrc/plonk.cuh)."""
     import ctypes
 
     from snark_bn254_verifier_tpu_torch.ops import _build
     from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
 
     out = {}
-    for name in PC.KERNEL_ENTRY_POINTS:
+    for name in names or PC.KERNEL_ENTRY_POINTS:
         vals = (ctypes.c_int * 6)()
         _build.check(lib, getattr(lib, f"bn_{name}_attrs")(vals), f"bn_{name}_attrs")
         out[name] = {"registers": vals[0], "stack_bytes": vals[1],

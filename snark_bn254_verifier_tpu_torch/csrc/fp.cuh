@@ -21,11 +21,13 @@
 #define BN_NOINLINE static __device__ __noinline__  // one copy per compiled source
 #define BN_CONST static __constant__  // one copy per compiled source
 #define BN_LDG(p) __ldg(p)
+#define BN_HOST_DEVICE __host__ __device__ inline  // sizes the host's launches read
 #else
 #define BN_INLINE static inline
 #define BN_NOINLINE static
 #define BN_CONST static const
 #define BN_LDG(p) (*(p))
+#define BN_HOST_DEVICE static inline
 #endif
 
 // Generated from oracle/bn254.py at build time (ops/_build.py): moduli,

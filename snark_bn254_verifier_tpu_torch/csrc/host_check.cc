@@ -2,13 +2,17 @@
 // (tests/test_torch_csrc_host.py): the same headers as kernels.cu, run on
 // the host, so the 16<->32-bit limb conversion, the CIOS and the
 // tower/curve/pairing formulas are checked without a card. K1 and its
-// fused form, the G2 on-curve mask, and K7's lane bodies (SHA-256 and the
-// PlonK lane pass) run lane by lane; the team kernels
-// (K2-K5) and K6's block stages run block by block, each thread of a block as a host thread,
-// meeting at a barrier wherever the card's threads meet at __syncthreads.
+// fused form, the G2 on-curve mask, SHA-256 and K7's inverse run lane by
+// lane; K7's blocks (the PlonK lane pass) stage by stage, each thread of a
+// block through a stage before the next; the team kernels (K2-K5) and
+// K6's block stages block by block, each thread of a block as a host
+// thread, meeting at a barrier wherever the card's threads meet at
+// __syncthreads.
 // It is built twice, with each form of the Montgomery product
 // (BN_ROLLED_CIOS, fp.cuh), so each kernel's tests run the form its unit
 // runs on the card. The main path never loads this library.
+#include <algorithm>
+#include <cstring>
 #include <thread>
 #include <vector>
 
@@ -235,35 +239,116 @@ int host_miller_product(const int32_t* px, const int32_t* py, const int32_t* qx,
 }
 
 // SHA-256 of one message by sha256.cuh's streaming context, from the
-// midstate ``mid`` after ``prefix`` bytes (SHA256_IV when mid is null).
-int host_sha256(const uint8_t* msg, long long len, const uint32_t* mid, long long prefix,
-                uint8_t* out) {
+// midstate ``mid`` after ``prefix`` bytes (SHA256_IV when mid is null):
+// the first ``lead`` bytes a byte at a time, the rest a word at a time
+// (the last part word's bytes one by one), so the words start at byte
+// position lead of the block.
+int host_sha256_lead(const uint8_t* msg, long long len, const uint32_t* mid, long long prefix,
+                     int lead, uint8_t* out) {
+  uint32_t blk[16];
   sha256_ctx c;
-  sha256_start(c, mid ? mid : SHA256_IV, (uint32_t)prefix);
-  sha256_bytes(c, msg, (int)len);
-  uint32_t d[8];
-  sha256_final(c, d);
-  for (int j = 0; j < 32; ++j) out[j] = (uint8_t)(d[j >> 2] >> (24 - 8 * (j & 3)));
+  sha256_start(c, mid ? mid : SHA256_IV, (uint32_t)prefix, blk, 1);
+  long long i = 0;
+  for (; i < lead && i < len; ++i) sha256_byte(c, msg[i]);
+  std::vector<uint32_t> words((len - i + 3) / 4 + 1, 0);
+  std::memcpy(words.data(), msg + i, len - i);  // little-endian memory words
+  sha256_mem(c, words.data(), 1, (int)(len - i));
+  const sha256_state d = sha256_final(c);
+  for (int j = 0; j < 32; ++j) out[j] = (uint8_t)(d.h[j >> 2] >> (24 - 8 * (j & 3)));
   return 0;
 }
 
-// K7a and K7b (plonk.cuh) lane by lane over n lanes.
+int host_sha256(const uint8_t* msg, long long len, const uint32_t* mid, long long prefix,
+                uint8_t* out) {
+  return host_sha256_lead(msg, len, mid, prefix, 0, out);
+}
+
+// K7a's inverse (plonk.cuh::fr_inv, Bernstein-Yang divsteps) of (16, n)
+// Fr limbs in Montgomery form.
+int host_fr_inv(const int32_t* a, int32_t* out, long long n) {
+  for (long long i = 0; i < n; ++i) {
+    fp x;
+    load_fp(x, a + i, n);
+    store_fp(out + i, n, fr_inv(x));
+  }
+  return 0;
+}
+
+// K7a and K7b (plonk.cuh) as on the card: a block of K7_LPB lanes at a
+// time, its stages in order, every thread of the block through a stage
+// before the next (the card's __syncthreads), on the block's own shared
+// memory, poisoned before each block. With ``reverse`` (the _ordered
+// entries) each stage runs its threads last to first, so a stage that
+// read a slot another thread writes in the same stage (a race on the
+// card) fails in one order.
+static void k7_block_poison(std::vector<uint32_t>& buf) {
+  std::fill(buf.begin(), buf.end(), 0xA5A5A5A5u);
+}
+
+extern "C++" {
+template <typename Stage>
+static void k7_stage(int nthreads, int reverse, Stage stage) {
+  for (int i = 0; i < nthreads; ++i) stage(reverse ? nthreads - 1 - i : i);
+}
+}
+
+int host_plonk_lanes_a_ordered(const uint8_t* raw, long long L, const int32_t* pub,
+                               const uint8_t* valid_in, const uint32_t* vkc, uint8_t* valid_out,
+                               int32_t* zeta, int32_t* px, int32_t* py, uint8_t* pinf,
+                               int32_t* lin, long long n, int reverse) {
+  const k7a_args a = {raw, L, pub, valid_in, vkc, valid_out, zeta, px, py, pinf, lin, n};
+  const int nt = K7A_WARPS * K7_LPB;
+  std::vector<uint32_t> buf(k7a_smem_words(L, (int)vkc[PV_NB]));
+  const k7_smem s = k7_layout(buf.data(), L);
+  for (long long block = 0; block * K7_LPB < n; ++block) {
+    k7_block_poison(buf);
+    k7_stage(nt, reverse, [&](int t) { k7_stage_rows(raw, L, n, block, s, t, nt); });
+    k7_stage(nt, reverse, [&](int t) { plonk_a_stage1(a, s, t, block); });
+    k7_stage(nt, reverse, [&](int t) { plonk_a_stage2(a, s, t, block); });
+    k7_stage(nt, reverse, [&](int t) { plonk_a_stage3(a, s, t, block); });
+  }
+  return 0;
+}
+
+int host_plonk_lanes_b_ordered(const uint8_t* raw, long long L, const uint8_t* valid,
+                               const int32_t* zeta, const int32_t* rand, const int32_t* dx,
+                               const int32_t* dy, const uint8_t* dinf, const uint32_t* vkc,
+                               int32_t* sc, long long n, int reverse) {
+  const k7b_args a = {raw, L, valid, zeta, rand, dx, dy, dinf, vkc, sc, n};
+  const int nt = K7B_WARPS * K7_LPB;
+  std::vector<uint32_t> buf(k7b_smem_words(L, (int)vkc[PV_NB]));
+  const k7_smem s = k7_layout(buf.data(), L);
+  for (long long block = 0; block * K7_LPB < n; ++block) {
+    k7_block_poison(buf);
+    k7_stage(nt, reverse, [&](int t) { k7_stage_rows(raw, L, n, block, s, t, nt); });
+    k7_stage(nt, reverse, [&](int t) { plonk_b_stage1(a, s, t, block); });
+    k7_stage(nt, reverse, [&](int t) { plonk_b_stage2(a, s, t, block); });
+  }
+  return 0;
+}
+
+// The same, first thread to last.
 int host_plonk_lanes_a(const uint8_t* raw, long long L, const int32_t* pub,
                        const uint8_t* valid_in, const uint32_t* vkc, uint8_t* valid_out,
                        int32_t* zeta, int32_t* px, int32_t* py, uint8_t* pinf, int32_t* lin,
                        long long n) {
-  for (long long lane = 0; lane < n; ++lane)
-    plonk_lanes_a_lane(raw, L, pub, valid_in, vkc, valid_out, zeta, px, py, pinf, lin, n, lane);
-  return 0;
+  return host_plonk_lanes_a_ordered(raw, L, pub, valid_in, vkc, valid_out, zeta, px, py, pinf,
+                                    lin, n, 0);
 }
 
 int host_plonk_lanes_b(const uint8_t* raw, long long L, const uint8_t* valid,
                        const int32_t* zeta, const int32_t* rand, const int32_t* dx,
                        const int32_t* dy, const uint8_t* dinf, const uint32_t* vkc, int32_t* sc,
                        long long n) {
-  for (long long lane = 0; lane < n; ++lane)
-    plonk_lanes_b_lane(raw, L, valid, zeta, rand, dx, dy, dinf, vkc, sc, n, lane);
-  return 0;
+  return host_plonk_lanes_b_ordered(raw, L, valid, zeta, rand, dx, dy, dinf, vkc, sc, n, 0);
 }
+
+// K7's dynamic shared bytes a block over rows of L bytes with nb BSB22
+// commitments (K7a's with lanes_a), and the most commitments that fit.
+long long host_plonk_smem_bytes(long long L, int nb, int lanes_a) {
+  return k7_smem_bytes(L, nb, lanes_a != 0);
+}
+
+int host_plonk_max_nb() { return k7_max_nb(); }
 
 }  // extern "C"

@@ -1,14 +1,20 @@
 // SHA-256 (FIPS 180-4) for one message per thread: the compression, a
-// streaming context that takes bytes and words, the padding, and a start
+// streaming context that takes words and bytes, the padding, and a start
 // from a midstate, so a prefix that every lane shares is hashed once on
 // the host. Kernel K7 (plonk.cuh) runs the PlonK transcript on it; the
 // host build (host_check.cc) checks it against hashlib without a card.
 //
-// The context's block is 16 big-endian words, filled a byte at a time at
-// a position that is the same on every lane of a batch (the messages have
-// one layout), so the only branch, "the block is full", is taken by all
-// lanes of a warp together: the compression is a __noinline__ function
-// (one copy of its 64 unrolled rounds), and the rule of tower.cuh holds.
+// The context fills its block a 32-bit word at a time: the messages of a
+// batch have one layout (the VK fixes it), so the byte position is the
+// same on every lane, and a big-endian word appended at any position is
+// split by two shifts into the word being filled (its top bytes, kept in
+// a register) and the next. The block itself is 16 words that the caller
+// places: on the card in shared memory, laid out [word][lane] (stride 32,
+// no bank conflicts), so no per-thread array is indexed by a value known
+// only at run time (the compiler would place it in local memory). Every branch ("the word is full", "the block is full")
+// is taken by all lanes of a warp together, and the compression is a
+// __noinline__ function taking and returning its state by value (one copy
+// of its 64 unrolled rounds), so the rule of tower.cuh holds.
 #pragma once
 
 #include "fp.cuh"
@@ -30,22 +36,37 @@ BN_CONST uint32_t SHA256_IV[8] = {0x6a09e667u, 0xbb67ae85u, 0x3c6ef372u, 0xa54ff
 
 BN_INLINE uint32_t rotr32(uint32_t x, int n) { return (x >> n) | (x << (32 - n)); }
 
-// h = the compression of h with one block of 16 big-endian words.
-BN_NOINLINE void sha256_compress(uint32_t* h, const uint32_t* block) {
-  uint32_t w[16];
+// A little-endian 32-bit word of four message bytes as the big-endian word
+// SHA-256 reads.
+BN_INLINE uint32_t bswap32(uint32_t x) {
+#if defined(__CUDACC__)
+  return __byte_perm(x, 0, 0x0123);
+#else
+  return __builtin_bswap32(x);
+#endif
+}
+
+struct sha256_state {
+  uint32_t h[8];
+};
+
+// The state after one block of 16 big-endian words, word t at w[t * ws].
+BN_NOINLINE sha256_state sha256_compress(sha256_state s, const uint32_t* w, int ws) {
+  uint32_t x[16];
 #pragma unroll
-  for (int t = 0; t < 16; ++t) w[t] = block[t];
-  uint32_t a = h[0], b = h[1], c = h[2], d = h[3], e = h[4], f = h[5], g = h[6], hh = h[7];
+  for (int t = 0; t < 16; ++t) x[t] = w[t * ws];
+  uint32_t a = s.h[0], b = s.h[1], c = s.h[2], d = s.h[3], e = s.h[4], f = s.h[5], g = s.h[6],
+           hh = s.h[7];
 #pragma unroll
   for (int t = 0; t < 64; ++t) {
     if (t >= 16) {
-      const uint32_t w15 = w[(t - 15) & 15], w2 = w[(t - 2) & 15];
+      const uint32_t w15 = x[(t - 15) & 15], w2 = x[(t - 2) & 15];
       const uint32_t s0 = rotr32(w15, 7) ^ rotr32(w15, 18) ^ (w15 >> 3);
       const uint32_t s1 = rotr32(w2, 17) ^ rotr32(w2, 19) ^ (w2 >> 10);
-      w[t & 15] += s0 + w[(t - 7) & 15] + s1;
+      x[t & 15] += s0 + x[(t - 7) & 15] + s1;
     }
     const uint32_t t1 = hh + (rotr32(e, 6) ^ rotr32(e, 11) ^ rotr32(e, 25)) +
-                        ((e & f) ^ (~e & g)) + SHA256_K[t] + w[t & 15];
+                        ((e & f) ^ (~e & g)) + SHA256_K[t] + x[t & 15];
     const uint32_t t2 =
         (rotr32(a, 2) ^ rotr32(a, 13) ^ rotr32(a, 22)) + ((a & b) ^ (a & c) ^ (b & c));
     hh = g;
@@ -57,80 +78,114 @@ BN_NOINLINE void sha256_compress(uint32_t* h, const uint32_t* block) {
     b = a;
     a = t1 + t2;
   }
-  h[0] += a;
-  h[1] += b;
-  h[2] += c;
-  h[3] += d;
-  h[4] += e;
-  h[5] += f;
-  h[6] += g;
-  h[7] += hh;
+  s.h[0] += a;
+  s.h[1] += b;
+  s.h[2] += c;
+  s.h[3] += d;
+  s.h[4] += e;
+  s.h[5] += f;
+  s.h[6] += g;
+  s.h[7] += hh;
+  return s;
 }
 
 struct sha256_ctx {
-  uint32_t h[8];
-  uint32_t w[16];  // the block being filled, big-endian words
-  uint32_t n;      // its bytes so far
+  sha256_state s;
+  uint32_t* w;     // the block: word j at w[j * ws]
+  int ws;
+  uint32_t acc;    // the word being filled: its bytes so far, from the top
+  uint32_t n;      // bytes in the block so far, acc's included
   uint32_t total;  // bytes hashed so far, the prefix of a midstate included
 };
 
 // Start from the state ``mid`` reached after ``prefix`` bytes, a whole
-// number of blocks (SHA256_IV after none).
-BN_INLINE void sha256_start(sha256_ctx& c, const uint32_t* mid, uint32_t prefix) {
+// number of blocks (SHA256_IV after none), with the block at blk, word j
+// at blk[j * ws].
+BN_INLINE void sha256_start(sha256_ctx& c, const uint32_t* mid, uint32_t prefix, uint32_t* blk,
+                            int ws) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) c.h[j] = mid[j];
-#pragma unroll
-  for (int j = 0; j < 16; ++j) c.w[j] = 0;
+  for (int j = 0; j < 8; ++j) c.s.h[j] = mid[j];
+  c.w = blk;
+  c.ws = ws;
+  c.acc = 0;
   c.n = 0;
   c.total = prefix;
 }
 
-BN_INLINE void sha256_init(sha256_ctx& c) { sha256_start(c, SHA256_IV, 0); }
+BN_INLINE void sha256_init(sha256_ctx& c, uint32_t* blk, int ws) {
+  sha256_start(c, SHA256_IV, 0, blk, ws);
+}
 
-BN_INLINE void sha256_byte(sha256_ctx& c, uint32_t byte) {
-  c.w[c.n >> 2] |= (byte & 0xFFu) << (24 - 8 * (c.n & 3));
-  ++c.total;
-  if (++c.n == 64) {
-    sha256_compress(c.h, c.w);
-    for (int j = 0; j < 16; ++j) c.w[j] = 0;
-    c.n = 0;
+// A big-endian word (four bytes) at any byte position: the word being
+// filled takes its top bytes, the rest start the next word (at a word
+// edge, s = 0, the whole word is written and nothing is left over).
+BN_INLINE void sha256_word(sha256_ctx& c, uint32_t x) {
+  const uint32_t s = 8 * (c.n & 3);
+  c.w[(c.n >> 2) * c.ws] = c.acc | (x >> s);
+  c.acc = (uint32_t)((uint64_t)x << (32 - s));
+  c.n += 4;
+  c.total += 4;
+  if (c.n >= 64) {
+    c.s = sha256_compress(c.s, c.w, c.ws);
+    c.n -= 64;
   }
 }
 
-BN_INLINE void sha256_bytes(sha256_ctx& c, const uint8_t* p, int len) {
-  for (int i = 0; i < len; ++i) sha256_byte(c, p[i]);
+BN_INLINE void sha256_byte(sha256_ctx& c, uint32_t byte) {
+  c.acc |= (byte & 0xFFu) << (24 - 8 * (c.n & 3));
+  ++c.n;
+  ++c.total;
+  if ((c.n & 3) == 0) {
+    c.w[((c.n >> 2) - 1) * c.ws] = c.acc;
+    c.acc = 0;
+    if (c.n == 64) {
+      c.s = sha256_compress(c.s, c.w, c.ws);
+      c.n = 0;
+    }
+  }
 }
 
-// A 32-bit word, big-endian (four bytes).
-BN_INLINE void sha256_word(sha256_ctx& c, uint32_t v) {
-  for (int s = 24; s >= 0; s -= 8) sha256_byte(c, v >> s);
+// ``nbytes`` message bytes held as little-endian memory words at p[0],
+// p[ps], ...: whole words, then the bytes of a last part word.
+BN_INLINE void sha256_mem(sha256_ctx& c, const uint32_t* p, int ps, int nbytes) {
+  int i = 0;
+  for (; i + 4 <= nbytes; i += 4) sha256_word(c, bswap32(p[(i >> 2) * ps]));
+  for (; i < nbytes; ++i) sha256_byte(c, p[(i >> 2) * ps] >> (8 * (i & 3)));
 }
 
 // A 256-bit value of 8 little-endian words as its 32 big-endian bytes.
 BN_INLINE void sha256_fp(sha256_ctx& c, const fp& v) {
+#pragma unroll
   for (int k = NW - 1; k >= 0; --k) sha256_word(c, v.w[k]);
 }
 
-// The ASCII bytes of a NUL-terminated string.
-BN_INLINE void sha256_str(sha256_ctx& c, const char* s) {
-  for (; *s; ++s) sha256_byte(c, (uint8_t)*s);
+BN_INLINE void sha256_digest(sha256_ctx& c, const sha256_state& d) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) sha256_word(c, d.h[j]);
 }
 
-// The padding (0x80, zeros, the bit length), then the digest as 8
-// big-endian words (h order: out[0] holds the digest's first 4 bytes).
-BN_INLINE void sha256_final(sha256_ctx& c, uint32_t* out) {
+// The ASCII bytes of a string literal (its NUL left out).
+template <int N>
+BN_INLINE void sha256_str(sha256_ctx& c, const char (&s)[N]) {
+#pragma unroll
+  for (int i = 0; i + 1 < N; ++i) sha256_byte(c, (uint8_t)s[i]);
+}
+
+// The padding (0x80, zeros to the word edge, then zero words to byte 56 of
+// a block, the bit length), then the digest, h[0] holding its first 4
+// bytes big-endian.
+BN_INLINE sha256_state sha256_final(sha256_ctx& c) {
   const uint32_t bits_hi = c.total >> 29, bits_lo = c.total << 3;
   sha256_byte(c, 0x80u);
-  while (c.n != 56) sha256_byte(c, 0);
-  c.w[14] = bits_hi;
-  c.w[15] = bits_lo;
-  sha256_compress(c.h, c.w);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) out[j] = c.h[j];
+  while ((c.n & 3) != 0) sha256_byte(c, 0);
+  while (c.n != 56) sha256_word(c, 0);
+  c.w[14 * c.ws] = bits_hi;
+  c.w[15 * c.ws] = bits_lo;
+  return sha256_compress(c.s, c.w, c.ws);
 }
 
 // A digest's 32 bytes as a 256-bit big-endian integer, little-endian words.
-BN_INLINE void digest_to_fp(fp& r, const uint32_t* d) {
+BN_INLINE void digest_to_fp(fp& r, const sha256_state& d) {
 #pragma unroll
-  for (int k = 0; k < NW; ++k) r.w[k] = d[NW - 1 - k];
+  for (int k = 0; k < NW; ++k) r.w[k] = d.h[NW - 1 - k];
 }

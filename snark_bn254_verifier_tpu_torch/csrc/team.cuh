@@ -255,11 +255,6 @@ enum {
 #define MP_LANE_WORDS (MP_CHAINS * MP_CHAIN_FQ2 * 16 + 1)
 
 // Shared bytes of a block (the launches size it on the host).
-#if defined(__CUDACC__)
-#define BN_HOST_DEVICE __host__ __device__ inline
-#else
-#define BN_HOST_DEVICE static inline
-#endif
 
 BN_HOST_DEVICE long long miller_mixed_smem_bytes(int nf) {
   return 4ll * ((long long)nf * TAB_ROWS * 16 + (long long)MM_LPB * MM_LANE_WORDS);

@@ -157,7 +157,11 @@ def _find_root_of_unity(n: int, rng: random.Random) -> int:
             return w
 
 
-def gen_plonk_vector(seed: int = 0, num_inputs: int = 2, with_bsb22: bool = True) -> SyntheticVector:
+def gen_plonk_vector(seed: int = 0, num_inputs: int = 2, with_bsb22: bool = True,
+                     n_bsb22: int = None) -> SyntheticVector:
+    """A PlonK vector on a domain of 8 with ``n_bsb22`` BSB22 commitments
+    (by default one, none without ``with_bsb22``) at constraint indexes
+    1..n_bsb22, so num_inputs + n_bsb22 stays below 8."""
     rng = random.Random(f"plonk-{seed}")
     n = 8
     omega = _find_root_of_unity(n, rng)
@@ -168,8 +172,9 @@ def gen_plonk_vector(seed: int = 0, num_inputs: int = 2, with_bsb22: bool = True
     # vk digests as known dlogs
     names = ["s0", "s1", "s2", "ql", "qr", "qm", "qo", "qk"]
     d = {name: _rand_fr(rng) for name in names}
-    qcp = [_rand_fr(rng)] if with_bsb22 else []
-    cci = [1] if with_bsb22 else []
+    nb = (1 if with_bsb22 else 0) if n_bsb22 is None else n_bsb22
+    qcp = [_rand_fr(rng) for _ in range(nb)]
+    cci = [1 + j for j in range(nb)]
 
     inputs = [_rand_fr(rng) for _ in range(num_inputs)]
 
@@ -177,7 +182,7 @@ def gen_plonk_vector(seed: int = 0, num_inputs: int = 2, with_bsb22: bool = True
     lro = [_rand_fr(rng) for _ in range(3)]
     zd = _rand_fr(rng)
     hq = [_rand_fr(rng) for _ in range(3)]
-    bsb = [_rand_fr(rng)] if with_bsb22 else []
+    bsb = [_rand_fr(rng) for _ in range(nb)]
 
     # ---- replicate the verifier's transcript to get real challenges ----
     fs = Transcript([GAMMA, BETA, ALPHA, ZETA])
@@ -210,18 +215,18 @@ def gen_plonk_vector(seed: int = 0, num_inputs: int = 2, with_bsb22: bool = True
         li = zh_zeta * pow((zeta - accw) % R, R - 2, R) % R * size_inv % R * accw % R
         pi = (pi + li * w) % R
         accw = accw * omega % R
-    if with_bsb22:
+    for cmt, ci in zip(bsb, cci):
         htf = WrappedHashToField(b"BSB22-Plonk")
-        htf.write(ser.g1_to_bytes(_g1(bsb[0])))
+        htf.write(ser.g1_to_bytes(_g1(cmt)))
         hashed_cmt = int.from_bytes(htf.sum(), "big") % R
-        w_pow_i = pow(omega, num_inputs + cci[0], R)
+        w_pow_i = pow(omega, num_inputs + ci, R)
         lagrange = zh_zeta * w_pow_i % R * pow((zeta - w_pow_i) % R, R - 2, R) % R * size_inv % R
         pi = (pi + lagrange * hashed_cmt) % R
 
     # claimed evaluations (free choices)
     l, r_, o, s1v, s2v = (_rand_fr(rng) for _ in range(5))
     zu = _rand_fr(rng)
-    qcp_evals = [_rand_fr(rng)] if with_bsb22 else []
+    qcp_evals = [_rand_fr(rng) for _ in range(nb)]
 
     alpha_sq_l1 = lagrange_one * alpha % R * alpha % R
     const_lin = (beta * s1v + gamma + l) % R

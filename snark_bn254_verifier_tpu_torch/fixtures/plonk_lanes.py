@@ -37,11 +37,12 @@ def _add_at(proof: bytes, off: int, add: int) -> bytes:
     return proof[:off] + v.to_bytes(32, "big") + proof[off + 32:]
 
 
-def plonk_batch_lanes(batch: int, bad: dict):
+def plonk_batch_lanes(batch: int, bad: dict, n_bsb22: int = 1):
     """(vector, proofs, inputs, expected) for ``batch`` lanes of
-    ``gen_plonk_vector(0)``; ``bad`` maps a lane to one of KINDS. Lanes
-    outside it hold the good proof; ``expected`` is True there only."""
-    vec = gen_plonk_vector(0)
+    ``gen_plonk_vector(0)`` with ``n_bsb22`` BSB22 commitments; ``bad``
+    maps a lane to one of KINDS. Lanes outside it hold the good proof;
+    ``expected`` is True there only."""
+    vec = gen_plonk_vector(0, n_bsb22=n_bsb22)
     ins = list(vec.public_inputs)
     (n_claimed,) = struct.unpack_from(">I", vec.proof, 512)
     claimed0 = bytearray(vec.proof)
@@ -55,7 +56,7 @@ def plonk_batch_lanes(batch: int, bad: dict):
         "wrong_value": lambda: (vec.proof, [ins[0] + 1] + ins[1:]),
         "claimed0": lambda: (bytes(claimed0), ins),
         "truncated": lambda: (vec.proof[:600], ins),
-        "other_statement": lambda: (gen_plonk_vector(1).proof, ins),
+        "other_statement": lambda: (gen_plonk_vector(1, n_bsb22=n_bsb22).proof, ins),
         "wrong_count": lambda: (vec.proof, ins[:-1]),
         "extra_claimed": lambda: (extra, ins),
         "noncanonical_x": lambda: (_add_at(vec.proof, 0, bn.P), ins),

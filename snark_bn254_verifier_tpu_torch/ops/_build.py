@@ -70,7 +70,6 @@ def consts_header() -> str:
         f"#define BN_FQ_N0 0x{FQ.n0inv32:08x}u",
         f"#define BN_FR_N0 0x{FR.n0inv32:08x}u",
         f"#define BN_FQ_PM2_NBITS {(bn.P - 2).bit_length()}",
-        f"#define BN_FR_PM2_NBITS {(bn.R - 2).bit_length()}",
         f"#define BN_MILLER_STEPS {len(MILLER_BITS)}",
         f"#define BN_X_NBITS {len(x_bits)}",
         f"BN_CONST uint32_t FQ_MOD[8] = {{{words(bn.P)}}};",
@@ -83,7 +82,10 @@ def consts_header() -> str:
         f"BN_CONST uint32_t FQ_R2[8] = {{{words(FQ.r2)}}};",
         f"BN_CONST uint32_t FR_R2[8] = {{{words(FR.r2)}}};",
         f"BN_CONST uint32_t FR_R3[8] = {{{words(pow(2, 768, bn.R))}}};",
-        f"BN_CONST uint32_t FR_PM2[8] = {{{words(bn.R - 2)}}};",
+        "// r in nine 30-bit limbs and r^-1 mod 2^30: the divsteps inverse (plonk.cuh)",
+        "BN_CONST int32_t FR_MOD_S30[9] = {"
+        + ", ".join(str((bn.R >> (30 * i)) & ((1 << 30) - 1)) for i in range(9)) + "};",
+        f"#define BN_FR_INV30 0x{pow(bn.R, -1, 1 << 30):08x}u",
         "// b = 3 of G1: y^2 = x^3 + b, Montgomery form",
         f"BN_CONST uint32_t G1_B_MONT[8] = {{{words(FQ.to_mont_int(bn.B_G1))}}};",
         "// b' = 3 / XI of the twist E'/Fq2: y^2 = x^3 + b'",
@@ -242,6 +244,7 @@ def bind_kernels(lib_path: Path) -> ctypes.CDLL:
         "bn_msm_pippenger_combine": [_P, _I, _I, _P, _P, _P, _N, _P],
         "bn_plonk_lanes_a": [_P, _N] + [_P] * 9 + [_N, _P],
         "bn_plonk_lanes_b": [_P, _N] + [_P] * 8 + [_N, _P],
+        "bn_plonk_max_nb": [],
         "bn_mont_mul_attrs": [_P],
         "bn_g2_on_curve_attrs": [_P],
         "bn_msm_affine_attrs": [_P],
@@ -304,12 +307,21 @@ def load_host_check(rolled: bool = False) -> ctypes.CDLL:
     lib.host_pip_reduce.argtypes = [_I, _I, _I, _P, _P, _N]
     lib.host_pip_combine.argtypes = [_P, _I, _I, _P, _P, _P, _N]
     lib.host_sha256.argtypes = [_P, _N, _P, _N, _P]
+    lib.host_sha256_lead.argtypes = [_P, _N, _P, _N, _I, _P]
+    lib.host_fr_inv.argtypes = [_P, _P, _N]
     lib.host_plonk_lanes_a.argtypes = [_P, _N] + [_P] * 9 + [_N]
     lib.host_plonk_lanes_b.argtypes = [_P, _N] + [_P] * 8 + [_N]
+    lib.host_plonk_lanes_a_ordered.argtypes = [_P, _N] + [_P] * 9 + [_N, _I]
+    lib.host_plonk_lanes_b_ordered.argtypes = [_P, _N] + [_P] * 8 + [_N, _I]
+    lib.host_plonk_smem_bytes.argtypes = [_N, _I, _I]
+    lib.host_plonk_smem_bytes.restype = _N
+    lib.host_plonk_max_nb.argtypes = []
     for fn in ("host_mont_mul", "host_fq_inv", "host_g2_on_curve", "host_fq12_mul",
                "host_msm_affine", "host_miller_mixed", "host_final_exp",
                "host_miller_product", "host_msm_pippenger", "host_pip_sort",
                "host_pip_buckets", "host_pip_reduce", "host_pip_combine", "host_sha256",
-               "host_plonk_lanes_a", "host_plonk_lanes_b"):
+               "host_sha256_lead", "host_fr_inv",
+               "host_plonk_lanes_a", "host_plonk_lanes_b", "host_plonk_lanes_a_ordered",
+               "host_plonk_lanes_b_ordered", "host_plonk_max_nb"):
         getattr(lib, fn).restype = _I
     return lib

@@ -14,7 +14,15 @@ to its twin and CUDA tensors to its kernel, checks device, dtype, shape
 and contiguity, allocates its outputs with ``torch.empty``, launches on
 the current stream, raises on a CUDA error and counts its launches in
 ``<wrapper>.launches``. ops/pairing_cuda.py re-exports both and lists them
-in KERNEL_ENTRY_POINTS.
+in KERNEL_ENTRY_POINTS. Each kernel copies its block's proof rows into
+shared memory a 4-byte word at a time, sized from the proof length
+(808 + 96 nb bytes), so the entry refuses (and the wrapper raises on) a
+``raw`` whose rows are not a proof's length or whose start is not
+4-byte aligned. The rows and the hand-over slots of a block grow with
+the VK's BSB22 commitments nb: above 48 KB (K7b from nb = 2, K7a from
+nb = 3) the entry raises the kernel's shared-memory limit, and past
+K7_MAX_NB commitments they no longer fit the 227 KB a block may have,
+so the wrappers refuse such a VK on the card (its twin takes any nb).
 """
 
 from __future__ import annotations
@@ -25,8 +33,20 @@ from . import plonk_lanes as PL
 from .field_cuda import expect, launch, on_cpu
 from .limbs import NUM_LIMBS
 
+# The most BSB22 commitments the kernels' shared memory holds
+# (csrc/plonk.cuh::k7_max_nb, which the host build's test holds this to)
+K7_MAX_NB = 37
+
+
+def check_nb(vk: PL.LanesVk) -> None:
+    """Raise where the VK has more BSB22 commitments than K7 takes."""
+    if vk.nb > K7_MAX_NB:
+        raise ValueError(f"K7 takes at most {K7_MAX_NB} BSB22 commitments (a block's proof "
+                         f"rows and slots in shared memory); the VK has {vk.nb}")
+
 
 def _raw_checked(raw: torch.Tensor, vk: PL.LanesVk) -> int:
+    check_nb(vk)
     b = raw.shape[0]
     expect("raw", raw, (b, vk.proof_len), torch.uint8)
     if not raw.is_contiguous():

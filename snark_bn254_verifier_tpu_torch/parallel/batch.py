@@ -59,7 +59,10 @@ call plus one copy to the host. On CUDA each batch in flight runs on a
 stream of its own (``_Ring``: IN_FLIGHT streams taken in turn), its
 host arrays go to the card in one copy, without blocking, from
 that stream's pinned staging buffer, and one event marks the batch's
-end.
+end. The tensor handed back is a ``HandedOver``: its first use on a
+stream makes that stream wait for its own batch's end, so reading batch
+n-2 waits for batch n-2 alone, as blocking on the JAX package's
+``jax.Array`` does, and dispatch queues no wait on the caller's stream.
 """
 
 from __future__ import annotations
@@ -71,6 +74,8 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from torch.utils._pytree import tree_flatten, tree_map
 
 from ..oracle import bn254 as bn
 from ..utils import errors
@@ -161,6 +166,14 @@ class _Slot:
         self.staging = torch.empty(0, dtype=torch.uint8)
         self.end: Optional[torch.cuda.Event] = None
 
+    def mark_end(self) -> torch.cuda.Event:
+        """Record the end of the work queued on the slot's stream so far,
+        as the slot's end event, and return it."""
+        with torch.cuda.stream(self.stream):
+            self.end = torch.cuda.Event()
+            self.end.record()
+        return self.end
+
 
 class _Ring:
     """IN_FLIGHT CUDA streams, taken in turn, one a batch. A slot is handed
@@ -193,18 +206,17 @@ class _Run:
         self.ok, self.stages, self.slot = ok, stages, slot
         self.extra = extra or {}
 
-    def handed_over(self) -> torch.Tensor:
-        """The bools for the caller, without a host sync: the caller's
-        current stream waits for the batch's end, so the tensor is ready
-        for any work queued there (``.cpu()`` included)."""
-        if self.slot is not None:
-            with torch.cuda.stream(self.slot.stream):
-                self.slot.end = torch.cuda.Event()
-                self.slot.end.record()
-            current = torch.cuda.current_stream(self.ok.device)
-            current.wait_event(self.slot.end)
-            self.ok.record_stream(current)
-        return self.ok
+    def handed_over(self, current=None, wait=None) -> torch.Tensor:
+        """The bools for the caller, without a host sync and without a
+        wait queued on the caller's stream: on CUDA the batch's end event
+        is recorded on its stream and the bools come back as a
+        ``HandedOver``, which waits for that event on first use. On the
+        CPU the plain tensor. ``current`` and ``wait`` are HandedOver's
+        stream lookup and waiter (the CUDA ones by default)."""
+        if self.slot is None:
+            return self.ok
+        return HandedOver.wrap(self.ok, self.slot.mark_end(), current or _current_stream,
+                               wait or _stream_wait)
 
     def on_host(self) -> np.ndarray:
         """The bools on the host: one copy (into a pinned buffer, on the
@@ -216,10 +228,90 @@ class _Run:
             host = torch.empty(self.ok.shape, dtype=torch.bool, pin_memory=True)
             host.copy_(self.ok, non_blocking=True)
             self.stages.device("compare_ms")
-            self.slot.end = torch.cuda.Event()
-            self.slot.end.record()
-        self.slot.end.synchronize()
+        self.slot.mark_end().synchronize()
         return host.numpy()
+
+
+def _current_stream(device: torch.device):
+    return torch.cuda.current_stream(device)
+
+
+def _stream_wait(stream, end, ok: torch.Tensor) -> None:
+    """``stream`` waits for the event ``end`` on the card (no host sync),
+    and the allocator keeps ``ok``'s memory until ``stream``'s work so far
+    has ended."""
+    stream.wait_event(end)
+    ok.record_stream(stream)
+
+
+_T = torch.Tensor
+# reads of a tensor's metadata, which need none of its values: no wait
+_METADATA = {_T.shape.__get__, _T.dtype.__get__, _T.device.__get__, _T.is_cuda.__get__,
+             _T.ndim.__get__, _T.size, _T.dim, _T.numel, _T.__len__}
+
+
+class HandedOver(torch.Tensor):
+    """The (B,) bools that ``verify_batch_async`` returns on CUDA: a
+    ``torch.Tensor`` whose values are ready on a stream only after that
+    stream waits for the batch's end event.
+
+    Every torch op given the tensor (``.cpu()``, ``.tolist()``,
+    ``.numpy()``, indexing, ``==``, an op queued on any stream, the
+    tensor among an op's arguments) passes through ``__torch_function__``,
+    which, on the tensor's first use from a stream, makes that stream wait
+    for the batch's end (a wait on the card, not on the host) and
+    ``record_stream``s the tensor there, so its memory is not reused
+    before that stream's work ends; a later use from the same stream
+    waits for nothing more, one from another stream waits once there. The
+    op then runs on the plain tensor and returns plain tensors. Reading
+    metadata (shape, dtype, device, size, len) waits for nothing.
+
+    So dispatching a batch queues no wait on the caller's stream, and
+    reading batch n-2 while n-1 and n run waits for batch n-2 alone: the
+    two-in-flight loop overlaps (a wait queued at dispatch made a read of
+    n-2 queue behind the waits for n-1 and n). A caller may still use the
+    tensor on its current stream with no extra call, as any tensor.
+
+    ``current(device)`` gives the using stream and ``wait(stream, end,
+    tensor)`` queues the wait (``_current_stream`` and ``_stream_wait``
+    on CUDA); both are arguments so that the ordering can be checked on
+    the CPU with stand-ins."""
+
+    _end = None
+    _waited: list
+    _dev: torch.device
+
+    @classmethod
+    def wrap(cls, ok: torch.Tensor, end, current, wait) -> "HandedOver":
+        with torch._C.DisableTorchFunctionSubclass():
+            out = ok.as_subclass(cls)
+            out._dev = ok.device
+        out._end, out._waited, out._current, out._wait = end, [], current, wait
+        return out
+
+    def _first_use(self) -> None:
+        stream = self._current(self._dev)
+        if stream not in self._waited:
+            with torch._C.DisableTorchFunctionSubclass():
+                self._wait(stream, self._end, self)
+            self._waited.append(stream)
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func not in _METADATA:
+            for t in tree_flatten((args, kwargs))[0]:
+                if isinstance(t, HandedOver):
+                    t._first_use()
+        with torch._C.DisableTorchFunctionSubclass():
+            args, kwargs = tree_map(_plain, (args, kwargs))
+            return func(*args, **kwargs)
+
+
+def _plain(x):
+    """A HandedOver as a plain tensor on the same memory; anything else
+    as it is."""
+    return x.as_subclass(torch.Tensor) if isinstance(x, HandedOver) else x
 
 
 class _Flights:
@@ -336,10 +428,12 @@ class Groth16BatchVerifier(_Flights):
                            public_inputs: Sequence[Sequence[int]]) -> torch.Tensor:
         """The (B,) bool tensor of ``verify_batch`` on the verifier's
         device, returned without waiting for the card: on CUDA the batch
-        runs on a stream of its own, and the caller's current stream waits
-        for it, so ``.cpu()`` (or any work queued there) sees the result.
-        Fills ``last_stats`` with what is known without that wait: the
-        host stages, ``elapsed_s`` the call's host time, ``n_valid`` None."""
+        runs on a stream of its own and the tensor is a ``HandedOver``,
+        usable on any stream with no extra call (``.cpu()``, ``.tolist()``,
+        any op), its first use on a stream waiting there for this batch
+        alone; on the CPU a plain tensor. Fills ``last_stats`` with what is
+        known without that wait: the host stages, ``elapsed_s`` the call's
+        host time, ``n_valid`` None."""
         run = self._dispatch(proofs, public_inputs)
         self.last_stats = self._stats(run, len(proofs), None, run.stages.host_ms())
         return run.handed_over()
@@ -539,8 +633,9 @@ class PlonkBatchVerifier(_Flights):
         """The (B,) bool tensor of ``verify_batch`` on the verifier's
         device, returned without waiting for the card: both phases and
         the lane passes between them stay in flight on the batch's stream,
-        which the caller's current stream waits for. Fills ``last_stats``
-        as Groth16's does."""
+        and the tensor is handed over as Groth16's is (a ``HandedOver`` on
+        CUDA: its first use on a stream waits there for this batch alone).
+        Fills ``last_stats`` as Groth16's does."""
         run = self._dispatch(proofs, public_inputs, rng)
         self.last_stats = self._stats(len(proofs), None, run.stages, run.stages.host_ms())
         return run.handed_over()

@@ -12,7 +12,9 @@ synchronous batch's ``stage_ms`` and three rounds of ms a batch, in turns:
 the verifier's two streams (and where the host spends that time: in the
 dispatch, its host stages, a wait for a free stream, a wait for the
 bools), the same with both slots of its ring on one stream, and
-``verify_batch`` one batch at a time; then the device time by
+``verify_batch`` one batch at a time; what one read of a ready bool
+tensor costs with two batches in flight and with the card idle; then
+the device time by
 kernel that ``torch.profiler`` records over 8 pipelined batches beside
 their wall clock, and the union of the kernels' intervals in the trace:
 the time at least one kernel ran, whatever the streams overlap, and so
@@ -45,9 +47,14 @@ def pipelined_split(ver, proofs, inputs, expected, batches: int) -> dict:
     its host stages ("host_stages": the parse and pack laps of
     ``last_stats``) and the wait for a free slot of the ring
     ("slot_wait"), the rest being uploads and launches; and waiting for
-    the bools of the batch two back ("bools_wait")."""
+    the bools ("bools_wait": of the batch two back, and at the end the
+    last two, which are still running); and, per read, the mean ms of the
+    reads whose batch had ended on the card when the read began
+    ("ended_read": its end event complete, or no event to wait for) and
+    the share of reads whose batch had not ("unended")."""
     ring, real_take = ver._ring, ver._ring.take
     split = dict.fromkeys(("dispatch", "host_stages", "slot_wait", "bools_wait"), 0.0)
+    ended = []  # the ms of each read whose batch had ended
 
     def timed_take():
         t = time.perf_counter()
@@ -56,9 +63,14 @@ def pipelined_split(ver, proofs, inputs, expected, batches: int) -> dict:
         return slot
 
     def done(ok):
+        end = getattr(ok, "_end", None)
+        had_ended = end is None or end.query()
         t = time.perf_counter()
         assert ok.cpu().tolist() == expected
-        split["bools_wait"] += time.perf_counter() - t
+        wait = time.perf_counter() - t
+        split["bools_wait"] += wait
+        if had_ended:
+            ended.append(wait)
 
     ring.take = timed_take
     try:
@@ -77,7 +89,33 @@ def pipelined_split(ver, proofs, inputs, expected, batches: int) -> dict:
         wall = time.perf_counter() - t0
     finally:
         del ring.take
-    return {"ms": wall / batches * 1e3, **{k: v / batches * 1e3 for k, v in split.items()}}
+    return {"ms": wall / batches * 1e3, **{k: v / batches * 1e3 for k, v in split.items()},
+            "ended_read": sum(ended) / len(ended) * 1e3 if ended else 0.0,
+            "unended": 1 - len(ended) / batches}
+
+
+def copy_ms_under_load(ver, proofs, inputs, expected, reads: int = 5) -> dict:
+    """What a read costs apart from any wait: with two batches in flight
+    on the verifier's streams, ms to ``.cpu()`` a (B,) bool tensor of the
+    caller's stream that is already complete ("busy"), the same with the
+    card idle ("idle"), each the mean of ``reads``. In the pipelined loop
+    batch n-2 has ended before it is read (the ring's take waited for it),
+    so its bools_wait is such a copy."""
+    ready = torch.zeros(len(expected), dtype=torch.bool, device="cuda")
+    torch.cuda.synchronize()
+
+    def reads_ms():
+        t = time.perf_counter()
+        for _ in range(reads):
+            ready.cpu()
+        return (time.perf_counter() - t) / reads * 1e3
+
+    idle = reads_ms()
+    pending = [ver.verify_batch_async(proofs, inputs) for _ in range(2)]
+    busy = reads_ms()
+    for ok in pending:
+        assert ok.cpu().tolist() == expected
+    return {"busy": busy, "idle": idle}
 
 
 def sync_ms(ver, proofs, inputs, expected, batches: int) -> float:
@@ -139,6 +177,9 @@ def probe(name: str, make, proofs, inputs, expected) -> None:
         print(f"{name} round {rnd}, ms a batch: "
               + ", ".join(f"{k} {v:.3f}" for k, v in row.items()))
 
+    copy = copy_ms_under_load(two, proofs, inputs, expected)
+    print(f"{name} a ready (B,) bool tensor's .cpu(): {copy['busy']:.3f} ms with two batches "
+          f"in flight, {copy['idle']:.3f} ms with the card idle")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = pipelined_ms(two, proofs, inputs, expected, 8) * 8
     rows = sorted(((e.key, e.device_time_total) for e in prof.key_averages()),

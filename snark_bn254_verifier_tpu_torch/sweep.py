@@ -1,4 +1,4 @@
-"""Time variants of the team kernels and K6 against the built ones, on one card.
+"""Time variants of the team kernels, K6 and K7 against the built ones, on one card.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -14,7 +14,7 @@ kernels' wrappers with their launches sent to that library, on the
 shapes of the main paths (batch one and batch 1024), holds each output
 limb-equal to the main build's (which chip_smoke.py holds to the plain
 twins and the oracle), and times the variants in turns, by CUDA events
-over warm launches. It prints the card's name and power limit and one
+over warm launches (K7's replayed in a CUDA graph). It prints the card's name and power limit and one
 JSON line per variant. The team shapes stay constants of the headers;
 this tool only rewrites copies of them.
 """
@@ -35,16 +35,22 @@ import torch
 from .fixtures.msm_lanes import trapdoor_msm
 from .models.packing import pack_g1, pack_g2, pack_msm, pair_major
 from .ops import _build
+from .fixtures.plonk_lanes import KINDS, plonk_batch_lanes
 from .ops import lines as LN
 from .ops import pairing_cuda as PC
+from .ops import plonk_cuda as PK
+from .ops import plonk_lanes as PL
 from .ops.limbs import FR
 from .oracle import bn254 as bn
+from .utils import serialization as ser
 
 SWEEP_DIR = _build.BUILD_DIR / "sweep"
 K6_BULK = ("pippenger.cu", ("-DBN_PIP_COMBINE=0",))  # K6's stages 1-5 (pippenger.cu)
 KERNEL_UNIT = {"msm_affine": _build.team_unit(2), "miller_mixed": _build.team_unit(3),
                "final_exp": _build.team_unit(4), "miller_product": _build.team_unit(5),
-               "msm_pippenger": K6_BULK}
+               "msm_pippenger": K6_BULK, "plonk_lanes_a": ("plonk_kernels.cu", ()),
+               "plonk_lanes_b": ("plonk_kernels.cu", ())}
+K7 = KERNEL_UNIT["plonk_lanes_a"]
 T2, T3, T4, T5 = (_build.team_unit(k) for k in (2, 3, 4, 5))
 
 # (name, units rebuilt, {file: [(old, new)]}, exact); "base" is the main
@@ -147,6 +153,29 @@ VARIANTS = [
         ("#define PIP_WIDE_ROWS 1024", "#define PIP_WIDE_ROWS 1")]}, True),
     ("K6 wide reduction", (K6_BULK,), {"pippenger.cuh": [
         ("#define PIP_WIDE_ROWS 1024", "#define PIP_WIDE_ROWS (1ll << 40)")]}, True),
+    # K7: its products inlined, or rolled; its inverse by Fermat's chain
+    # (the first design's: a^(r-2), the exponent's low word r0 - 2 >= 0)
+    ("K7 inline products", (K7,), {"plonk.cuh": [
+        ("BN_NOINLINE fp frmul(fp a, fp b)", "BN_INLINE fp frmul(fp a, fp b)"),
+        ("BN_NOINLINE fp fqmul(fp a, fp b)", "BN_INLINE fp fqmul(fp a, fp b)")]}, True),
+    ("K7 rolled CIOS", (K7,), {"plonk_kernels.cu": [
+        ("#include <cuda_runtime.h>", "#include <cuda_runtime.h>\n#define BN_ROLLED_CIOS 1")]},
+     True),
+    ("K7 Fermat inverse", (K7,), {"plonk.cuh": [
+        ("BN_NOINLINE fp fr_inv(fp a) { return frmul(fr_inv_plain(a), fp_words(FR_R3)); }",
+         "BN_NOINLINE fp fr_inv(fp a) {\n  fp acc = fr_one();\n"
+         "  for (int i = 253; i >= 0; --i) {\n    acc = frmul(acc, acc);\n"
+         "    if (((FR_MOD[i >> 5] - (i < 32 ? 2u : 0u)) >> (i & 31)) & 1u) acc = frmul(acc, a);\n"
+         "  }\n  return acc;\n}")]}, True),
+    # ablations: K7b's fold transcript cut from 12 compressions to 2, K7a's
+    # zeta transcript from 4 to 1 (h0, h1, h2 left out)
+    ("K7b 10 compressions fewer", (K7,), {"plonk.cuh": [(
+        "    sha256_row(c, row, 0, 192);  // l, r, o\n"
+        "    sha256_mem(c, vkc + pv_digests(nb_pub, nb), 1, 64 * (2 + nb));\n"
+        "    sha256_row(c, row, 516, 32 * ncv);\n"
+        "    sha256_row(c, row, plonk_off_zs(nb) + 64, 32);\n", "")]}, False),
+    ("K7a 3 compressions fewer", (K7,), {"plonk.cuh": [
+        ("    sha256_row(c, row, 256, 192);  // h0, h1, h2\n", "")]}, False),
 ]
 
 
@@ -193,6 +222,12 @@ def variant_launch(lib):
             _build.check(lib, code, entry)
 
     return launch
+
+
+def send_launches(launch) -> None:
+    """Send the wrappers' launches (ops/pairing_cuda.py's and K7's,
+    ops/plonk_cuda.py's) to ``launch``."""
+    PC.launch = PK.launch = launch
 
 
 def cases(seed: int = 0):
@@ -251,6 +286,33 @@ def cases(seed: int = 0):
     ]
 
 
+def k7_cases(b: int = 1024):
+    """K7a and K7b on a PlonK batch of b lanes, a bad lane of every kind
+    every 37 lanes (chip_smoke.py's), K7b on K7a's outputs."""
+    dev = torch.device("cuda")
+    bad = {lane: KINDS[k % len(KINDS)] for k, lane in enumerate(range(3, b, 37))}
+    vec, proofs, inputs, _ = plonk_batch_lanes(b, bad)
+    lvk = PL.LanesVk(ser.load_plonk_verifying_key_from_bytes(vec.vk))
+    raw, valid = PL.pack_proofs(proofs, lvk)
+    counted = np.array([len(ins) == lvk.nb_pub for ins in inputs])
+    from .models.packing import pack_fr_columns
+
+    pub = pack_fr_columns([ins if c else None for ins, c in zip(inputs, counted)], lvk.nb_pub, b)
+    raw, pub, valid = (torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                       for a in (raw, pub, valid & counted))
+    ok, zeta, _, _ = PK.plonk_lanes_a(raw, pub, valid, lvk)
+    rng = random.Random(b)
+    g1 = [bn.g1_mul(bn.G1_GEN, rng.randrange(1, bn.R)) for _ in range(8)]
+    digest = tuple(torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                   for a in pack_g1([None] + [g1[rng.randrange(8)] for _ in range(b - 1)]))
+    rand = torch.as_tensor(pack_fr_columns([[rng.randrange(1, bn.R)] for _ in range(b)], 1, b)[0],
+                           device=dev)
+    return [
+        ("plonk_lanes_a", f"B={b}", lambda: PK.plonk_lanes_a(raw, pub, valid, lvk)),
+        ("plonk_lanes_b", f"B={b}", lambda: PK.plonk_lanes_b(raw, ok, zeta, rand, digest, lvk)),
+    ]
+
+
 def time_ms(fn, iters: int) -> float:
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -263,9 +325,31 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_graph_ms(fn, iters: int) -> float:
+    """Mean ms of ``iters`` calls of ``fn`` captured in one CUDA graph and
+    replayed, so no host launch time sits between kernels (K7's, under
+    0.1 ms, would time the host's wrapper calls otherwise)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def flat(out):
-    return torch.cat([t.reshape(-1).to(torch.int64) for t in out]) if isinstance(out, tuple) \
-        else out.reshape(-1).to(torch.int64)
+    """A kernel's outputs (a tensor or nested tuples of them) as one int64 row."""
+    if isinstance(out, tuple):
+        return torch.cat([flat(t) for t in out])
+    return out.reshape(-1).to(torch.int64)
 
 
 def main() -> int:
@@ -294,26 +378,29 @@ def main() -> int:
 
     real_launch = PC.launch
     results = {name: {} for name in libs}
+    # K7's cases alone where only K7's variants are chosen
+    only_k7 = chosen and all(set(u) == {K7} for _, u, _, _ in chosen)
     try:
-        for kernel, label, call in cases():
-            PC.launch = real_launch
+        for kernel, label, call in (k7_cases() if only_k7 else cases() + k7_cases()):
+            send_launches(real_launch)
             want = flat(call())
             names = [n for n in libs if KERNEL_UNIT[kernel] in units[n]]
             for name in names:  # exact against the main build first
-                PC.launch = variant_launch(libs[name][0])
+                send_launches(variant_launch(libs[name][0]))
                 if exact.get(name, True) and not torch.equal(flat(call()), want):
                     raise RuntimeError(f"variant {name}: {kernel} {label} differs from the main build")
             times = {n: [] for n in names}
             for _ in range(args.rounds):  # in turns: a b c ... c b a
                 for name in names + names[::-1]:
-                    PC.launch = variant_launch(libs[name][0])
-                    times[name].append(time_ms(call, args.iters))
+                    send_launches(variant_launch(libs[name][0]))
+                    timer = time_graph_ms if kernel.startswith("plonk") else time_ms
+                    times[name].append(timer(call, args.iters))
             for name in names:
                 results[name][f"{kernel} {label}"] = min(times[name])
             print(f"{kernel} {label}: " + ", ".join(
                 f"{n} {min(times[n]):.3f}" for n in names) + " ms (best of turns)")
     finally:
-        PC.launch = real_launch
+        send_launches(real_launch)
     for name, (_, log) in libs.items():
         print(json.dumps({"variant": name, "exact": exact.get(name, True), "ms": results[name],
                           "ptxas": log}))

@@ -38,7 +38,8 @@ batch's lane pass) also hashes: SHA-256's logic, shifts and adds
 twins make, ``count_sha256``) run on the integer ALU pipe, 64 a clock per
 SM, beside the multiply-adds on the FMA pipe, 64 a clock too; the four
 schedulers of an SM issue 128 instructions a clock, enough for both, so
-the busier pipe sets the bound.
+the busier pipe sets the bound. K7a inverts in Fr by divsteps, not by
+its twin's Fermat chain: ``lane_pass_work`` charges its bound that.
 """
 
 from __future__ import annotations
@@ -61,6 +62,23 @@ ALU_PER_S = 64 * 132 * 1.98e9
 # (sigma0 and sigma1 3 shifts and a LOP3 each, 2 IADD3), then the 8 adds
 # into the state
 SHA256_ALU_PER_COMPRESSION = 64 * 14 + 48 * 10 + 8
+# K7a's inverse in Fr (csrc/plonk.cuh::fr_inv): Bernstein and Yang's
+# divsteps, 20 batches of 30 steps, far cheaper than Fermat's 381 dependent
+# products (the plain twin's ops/field.py::inv), so the bound charges it.
+# A step in the fewest ALU instructions is 21: the two condition masks (a
+# shift; an AND and a negate), their AND, three conditional adds into g,
+# q, r (a LOP3 of (f ^ c1) & c2 and an IADD3 less c1 & c2 each), zeta's
+# update (LOP3, IADD3), three conditional adds into f, u, v (LOP3, IADD3
+# each) and three shifts. A batch applies its 2x2 matrix to f, g (36 wide
+# products, 9 limbs by 4 entries) and to d, e mod r (54 wide products and
+# the 2 low ones of the multiple of r that clears the low limb), a wide
+# product a lo and a hi multiply-add as in fp_mul; then one product by R^3
+# puts the inverse in Montgomery form. The carries and shifts between
+# the limbs are not counted, so this is an underestimate, as the bound is.
+DIVSTEPS = 20 * 30
+ALU_PER_DIVSTEP = 21
+FR_INV_IMADS = 20 * (2 * (36 + 54) + 2) + IMAD_PER_FP_MUL
+FR_INV_ALU = DIVSTEPS * ALU_PER_DIVSTEP
 
 
 @contextmanager
@@ -121,21 +139,53 @@ def count_sha256(fn) -> int:
     return total[0]
 
 
-def bound(fp_muls: int, nbytes: int, sha256_compressions: int = 0) -> dict:
+def lane_pass_work(fn) -> dict:
+    """The work kernel K7 needs for what its plain twins compute in fn():
+    their Montgomery products and SHA-256 compressions, each Fr inversion
+    charged as the divsteps' cost (FR_INV_IMADS, FR_INV_ALU; ``bound``'s
+    ``fr_inversions``) and its Fermat chain's products taken out of
+    ``fp_muls``. The twins stay the yardstick of the bits; this is the
+    yardstick of the work."""
+    from ..ops import field as F
+
+    real_inv = F.inv
+    inside, inversions = [0], [0]
+    with _counting(charge_pow=False) as total:
+        def counted_inv(spec, a):
+            before = total[0]
+            out = real_inv(spec, a)
+            inside[0] += total[0] - before
+            inversions[0] += a[0].numel()
+            return out
+
+        F.inv = counted_inv
+        try:
+            comps = count_sha256(fn)
+        finally:
+            F.inv = real_inv
+    return {"fp_muls": total[0] - inside[0], "sha256_compressions": comps,
+            "fr_inversions": inversions[0]}
+
+
+def bound(fp_muls: int, nbytes: int, sha256_compressions: int = 0,
+          fr_inversions: int = 0) -> dict:
     """The least time the card could take for ``fp_muls`` Montgomery
-    products and ``sha256_compressions`` compressions reading and writing
-    ``nbytes``: the largest of the multiply-adds on their pipe (264 a
-    product), the ALU instructions on theirs (SHA256_ALU_PER_COMPRESSION
-    a compression) and device memory."""
-    imads = fp_muls * IMAD_PER_FP_MUL
-    alu = sha256_compressions * SHA256_ALU_PER_COMPRESSION
+    products, ``sha256_compressions`` compressions and ``fr_inversions``
+    inversions in Fr reading and writing ``nbytes``: the largest of the
+    multiply-adds on their pipe (264 a product, FR_INV_IMADS an
+    inversion), the ALU instructions on theirs (SHA256_ALU_PER_COMPRESSION
+    a compression, FR_INV_ALU an inversion) and device memory."""
+    imads = fp_muls * IMAD_PER_FP_MUL + fr_inversions * FR_INV_IMADS
+    alu = sha256_compressions * SHA256_ALU_PER_COMPRESSION + fr_inversions * FR_INV_ALU
     ops_ms = max(imads / IMAD_PER_S, alu / ALU_PER_S) * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     out = {"bound_ms": max(ops_ms, bytes_ms),
            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
            "fp_muls": fp_muls, "imads": imads, "bytes": nbytes}
-    if sha256_compressions:
+    if sha256_compressions or fr_inversions:
         out.update(sha256_compressions=sha256_compressions, alu_ops=alu)
+    if fr_inversions:
+        out["fr_inversions"] = fr_inversions
     return out
 
 

@@ -329,17 +329,16 @@ def test_verify_batch_async_pipelined_on_cuda(cuda):
                                   "msm_pippenger": 0, "plonk_lanes_a": 3, "plonk_lanes_b": 3}
 
 
-@pytest.mark.parametrize("b", [1, 37])
-def test_plonk_lanes_kernels_equal_plain(cuda, b):
+def plonk_lanes_kernels_against_twins(cuda, b, n_bsb22=1):
     """K7a and K7b against their plain twins on the same CUDA tensors, a
-    lane of every kind (37 lanes: a ragged second block; 1: one lane),
-    exact; then the valid bits against the expected verdicts."""
+    lane of every kind that fits among b, exact; then the valid bits
+    against the expected verdicts."""
     from snark_bn254_verifier_tpu_torch.models.packing import pack_fr_columns
     from snark_bn254_verifier_tpu_torch.ops import plonk_lanes as PL
     from snark_bn254_verifier_tpu_torch.utils import serialization as ser
 
     bad = {1 + k: kind for k, kind in enumerate(KINDS) if 1 + k < b}
-    vec, proofs, inputs, expected = plonk_batch_lanes(b, bad)
+    vec, proofs, inputs, expected = plonk_batch_lanes(b, bad, n_bsb22)
     lvk = PL.LanesVk(ser.load_plonk_verifying_key_from_bytes(vec.vk))
     raw, valid = PL.pack_proofs(proofs, lvk)
     counted = np.array([len(ins) == lvk.nb_pub for ins in inputs])
@@ -358,3 +357,57 @@ def test_plonk_lanes_kernels_equal_plain(cuda, b):
                            device=cuda)
     sc = PC.plonk_lanes_b(raw, got[0], got[1], rand, digest, lvk)
     assert torch.equal(sc, PL.plonk_lanes_b_plain(raw, got[0], got[1], rand, digest, lvk))
+    return lvk
+
+
+@pytest.mark.parametrize("b", [1, 37])
+def test_plonk_lanes_kernels_equal_plain(cuda, b):
+    """K7a and K7b against their plain twins, a lane of every kind (37
+    lanes: a ragged second block; 1: one lane)."""
+    plonk_lanes_kernels_against_twins(cuda, b)
+
+
+@pytest.mark.parametrize("n_bsb22", [2, 3])
+def test_plonk_lanes_kernels_at_more_commitments(cuda, n_bsb22):
+    """A VK of 2 and 3 BSB22 commitments: above 48 KB of dynamic shared
+    memory (K7b from 2, K7a from 3), where the entry raises the kernels'
+    limit; 37 lanes of every kind against the twins, and the launches'
+    shared bytes as the layout gives them."""
+    import ctypes
+
+    from snark_bn254_verifier_tpu_torch.ops import _build
+    from snark_bn254_verifier_tpu_torch.ops import plonk_cuda as PCU
+    from snark_bn254_verifier_tpu_torch.ops.plonk_lanes import proof_bytes
+
+    lvk = plonk_lanes_kernels_against_twins(cuda, 37, n_bsb22)
+    assert lvk.nb == n_bsb22
+    lib = _build.load_kernels().lib
+    for name, per_nb in (("a", {2: 49_152, 3: 53_248}), ("b", {2: 51_584, 3: 56_704})):
+        vals = (ctypes.c_int * 6)()
+        assert getattr(lib, f"bn_plonk_lanes_{name}_attrs")(vals) == 0
+        assert vals[3] == per_nb[n_bsb22]
+    assert lib.bn_plonk_max_nb() == PCU.K7_MAX_NB and proof_bytes(n_bsb22) == lvk.proof_len
+
+
+def test_plonk_lanes_refuse_a_vk_past_the_shared_memory(cuda):
+    """A VK of K7_MAX_NB + 1 commitments: both wrappers raise before any
+    launch and count none."""
+    import copy
+
+    from snark_bn254_verifier_tpu_torch.ops import plonk_cuda as PCU
+    from snark_bn254_verifier_tpu_torch.ops import plonk_lanes as PL
+    from snark_bn254_verifier_tpu_torch.utils import serialization as ser
+
+    vec, proofs, inputs, _ = plonk_batch_lanes(2, {})
+    lvk = copy.copy(PL.LanesVk(ser.load_plonk_verifying_key_from_bytes(vec.vk)))
+    lvk.nb = PCU.K7_MAX_NB + 1
+    raw = torch.zeros((2, PL.proof_bytes(lvk.nb)), dtype=torch.uint8, device=cuda)
+    ok = torch.ones(2, dtype=torch.bool, device=cuda)
+    fr = torch.zeros((16, 2), dtype=torch.int32, device=cuda)
+    before = (PC.plonk_lanes_a.launches, PC.plonk_lanes_b.launches)
+    with pytest.raises(ValueError, match="BSB22 commitments"):
+        PC.plonk_lanes_a(raw, torch.zeros((lvk.nb_pub, 16, 2), dtype=torch.int32, device=cuda),
+                         ok, lvk)
+    with pytest.raises(ValueError, match="BSB22 commitments"):
+        PC.plonk_lanes_b(raw, ok, fr, fr, (fr, fr, ok), lvk)
+    assert (PC.plonk_lanes_a.launches, PC.plonk_lanes_b.launches) == before

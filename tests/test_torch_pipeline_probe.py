@@ -62,6 +62,9 @@ def test_pipelined_split_accounts_the_host(monkeypatch):
     split = probe.pipelined_split(ver, None, None, [True, False], 5)
     assert ver._ring.taken == 5 and "take" not in vars(ver._ring)
     assert split["host_stages"] == pytest.approx(3.0)
-    assert set(split) == {"ms", "dispatch", "host_stages", "slot_wait", "bools_wait"}
+    assert set(split) == {"ms", "dispatch", "host_stages", "slot_wait", "bools_wait",
+                          "ended_read", "unended"}
     assert 0 <= split["slot_wait"] <= split["dispatch"]
+    # a plain tensor has no end event to wait for: every read counts as ended
+    assert split["unended"] == 0 and split["ended_read"] == pytest.approx(split["bools_wait"])
     assert split["dispatch"] + split["bools_wait"] <= split["ms"] + 1e-6

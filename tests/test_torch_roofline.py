@@ -106,6 +106,7 @@ def _load_chip_smoke():
 def test_chip_smoke_uses_the_module_model():
     smoke = _load_chip_smoke()
     assert smoke.bound is PR.bound and smoke.count_fp_muls is PR.count_fp_muls
+    assert smoke.lane_pass_work is PR.lane_pass_work
     assert smoke.pippenger_work is PR.pippenger_work
     assert not hasattr(smoke, "IMAD_PER_S") and not hasattr(smoke, "HBM_BYTES_PER_S")
 
@@ -207,7 +208,7 @@ def plonk_lane():
 
 def test_k7_work_of_the_bench_plonk_lane(plonk_lane):
     """A lane of K7a: 504 products (50 for the proof's ten on-curve checks,
-    382 for the one Fermat inversion) and 17 compressions (gamma 5 past
+    381 for the one Fermat inversion) and 17 compressions (gamma 5 past
     the VK's midstate, beta 1, alpha 3, zeta 4, BSB22's hash 4); K7b: 36
     products and the fold's 12 compressions."""
     from snark_bn254_verifier_tpu_torch.models.packing import pack_fr_columns
@@ -226,6 +227,40 @@ def test_k7_work_of_the_bench_plonk_lane(plonk_lane):
     real = PL.sha256_compress
     assert PR.count_fp_muls(fold) == 36 and PR.count_sha256(fold) == 12
     assert PL.sha256_compress is real
+
+
+def test_lane_pass_work_charges_the_divsteps_inverse(plonk_lane):
+    """K7's bound counts the work the kernel needs: K7a's twin's 504
+    products less the 381 of its Fermat inversion (254 squarings, 127
+    multiplies), so 123, its 17 compressions and one inversion at the
+    divsteps' cost (600 steps of 21 ALU instructions; 20 matrix
+    applications of 90 wide products and 2 low ones, and the product by
+    R^3). That is the cheaper way: it charges its pipes less than
+    Fermat's chain charges the multiply-adds. K7b inverts nothing. At 1024
+    lanes K7a's bound is 0.002227 ms, set by the multiply-adds."""
+    from snark_bn254_verifier_tpu_torch.models.packing import pack_fr_columns
+    from snark_bn254_verifier_tpu_torch.ops import field as F
+    from snark_bn254_verifier_tpu_torch.ops import plonk_lanes as PL
+
+    vec, args, (ok, zeta, (px, py, _), _) = plonk_lane
+    real_inv = F.inv
+    work = PR.lane_pass_work(lambda: PL.plonk_lanes_a_plain(*args))
+    assert F.inv is real_inv
+    assert work == {"fp_muls": 123, "sha256_compressions": 17, "fr_inversions": 1}
+    assert PR.FR_INV_ALU == 600 * 21 == 12_600
+    assert PR.FR_INV_IMADS == 20 * (2 * 90 + 2) + 264 == 3_904
+    assert max(PR.FR_INV_IMADS, PR.FR_INV_ALU) < 381 * PR.IMAD_PER_FP_MUL
+    got = PR.bound(123 * 1024, 0, sha256_compressions=17 * 1024, fr_inversions=1024)
+    assert got["imads"] == 1024 * (123 * 264 + 3_904)
+    assert got["alu_ops"] == 1024 * (17 * 1_384 + 12_600) and got["fr_inversions"] == 1024
+    assert got["bound_ms"] == pytest.approx(1024 * 36_376 / PR.IMAD_PER_S * 1e3, rel=1e-12)
+    assert got["bound_ms"] == pytest.approx(0.002227, rel=1e-3)
+    digest = (px[0], py[0], torch.zeros(1, dtype=torch.bool))
+    rand = torch.as_tensor(pack_fr_columns([[5]], 1, 1)[0])
+    fold = PR.lane_pass_work(lambda: PL.plonk_lanes_b_plain(args[0], ok, zeta, rand, digest,
+                                                           args[3]))
+    assert fold == {"fp_muls": 36, "sha256_compressions": 12, "fr_inversions": 0}
+    assert "fr_inversions" not in PR.bound(36, 0, sha256_compressions=12)
 
 
 def test_lane_mults_of_the_bench_plonk_proof(plonk_lane, monkeypatch):

@@ -2,8 +2,9 @@
 (ops/plonk_lanes.py): the twin over lanes against hashlib at every block
 edge, its start from a midstate against the whole message's hash, its
 expand_message_xmd and hash to Fr against the JAX package's
-utils/hash_to_field.py, and the g++ build of sha256.cuh against hashlib.
-Messages come from a numpy seed."""
+utils/hash_to_field.py, and the g++ build of sha256.cuh against hashlib,
+its word-wise fill starting at every byte of a word. Messages come from a
+numpy seed."""
 
 import hashlib
 import shutil
@@ -120,3 +121,23 @@ def test_sha256_host_build_equals_hashlib(n):
     assert lib.host_sha256(rest.ctypes.data, len(rest), mid.ctypes.data, whole,
                            out.ctypes.data) == 0
     assert out.tobytes() == hashlib.sha256(head + msg.tobytes()).digest()
+
+
+# both sides of the 56-byte padding edge and of one and two block edges,
+# counted from the byte where the words start
+WORD_LENGTHS = [4, 51, 52, 53, 55, 56, 57, 60, 63, 64, 65, 68, 119, 120, 121, 127, 128, 129, 184]
+
+
+@pytest.mark.parametrize("lead", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", WORD_LENGTHS)
+def test_sha256_word_fill_host_build_equals_hashlib(lead, n):
+    """sha256.cuh's word-wise fill (the g++ build): ``lead`` bytes a byte at
+    a time, so the words that follow start at byte 0-3 of a word, then
+    whole words and a last part word, padded and compressed; the digest
+    equals hashlib's at lengths across the padding edge and one and two
+    block edges."""
+    lib = host_lib()
+    msg = messages(lead + n, lanes=1, seed=lead)[0]
+    out = np.zeros(32, np.uint8)
+    assert lib.host_sha256_lead(msg.ctypes.data, len(msg), None, 0, lead, out.ctypes.data) == 0
+    assert out.tobytes() == hashlib.sha256(msg.tobytes()).digest()
