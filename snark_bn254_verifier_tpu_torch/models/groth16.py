@@ -32,6 +32,7 @@ from typing import Optional, Sequence
 
 from ..oracle import bn254 as bn
 from ..utils import errors, serialization as ser
+from ..utils.profiling import span
 from .backend import facade_backend, get_backend
 
 
@@ -102,14 +103,15 @@ class Groth16Verifier:
         """On the torch backend of ``device`` ("cuda" or "cpu") where one
         is named, else on the default backend (models/backend.py): the
         card unless ``set_default_backend`` changed it."""
-        backend = facade_backend(device)
-        key = hashlib.sha256(vk).digest()
-        ent = Groth16Verifier._cache.get(key)
-        if ent is None:
-            vk_obj = ser.load_groth16_verifying_key_from_bytes(vk)
-            ent = (vk_obj, PreparedVerifyingKey.from_vk(vk_obj, backend))
-            Groth16Verifier._cache[key] = ent
-        vk_obj, prepared = ent
-        proof_obj = ser.load_groth16_proof_from_bytes(proof)
-        return verify_groth16(vk_obj, proof_obj, public_inputs, backend=backend,
-                              prepared=prepared)
+        with span("bn254.facade.verify"):
+            backend = facade_backend(device)
+            with span("bn254.facade.parse"):
+                key = hashlib.sha256(vk).digest()
+                ent = Groth16Verifier._cache.get(key)
+                vk_obj = ser.load_groth16_verifying_key_from_bytes(vk) if ent is None else ent[0]
+                proof_obj = ser.load_groth16_proof_from_bytes(proof)
+            if ent is None:  # e(alpha, beta) once per VK, outside the parse
+                ent = (vk_obj, PreparedVerifyingKey.from_vk(vk_obj, backend))
+                Groth16Verifier._cache[key] = ent
+            return verify_groth16(vk_obj, proof_obj, public_inputs, backend=backend,
+                                  prepared=ent[1])

@@ -99,7 +99,16 @@ def unpack_g1(x: torch.Tensor, y: torch.Tensor, inf: torch.Tensor) -> List:
     """Affine device result (x (16, B), y (16, B), inf (B,)) -> oracle
     points (None = infinity), with one device-to-host copy: x, y and the
     flags stacked as one (33, B) tensor on the device first."""
-    both = torch.cat([x, y, inf.to(x.dtype).unsqueeze(0)]).cpu().numpy()
+    return g1_from_rows(g1_rows(x, y, inf).cpu().numpy())
+
+
+def g1_rows(x: torch.Tensor, y: torch.Tensor, inf: torch.Tensor) -> torch.Tensor:
+    """``unpack_g1``'s (33, B) tensor on the device: x, y, the flags."""
+    return torch.cat([x, y, inf.to(x.dtype).unsqueeze(0)])
+
+
+def g1_from_rows(both: np.ndarray) -> List:
+    """``g1_rows``' array on the host -> oracle points (None = infinity)."""
     b = both.shape[-1]
     xy = unpack_fq(both[:32].reshape(2, NUM_LIMBS, b).transpose(1, 0, 2))
     return [None if both[32, k] else (xy[k], xy[b + k]) for k in range(b)]

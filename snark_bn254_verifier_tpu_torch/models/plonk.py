@@ -29,6 +29,7 @@ from ..utils import serialization as ser
 from ..utils.hash_to_field import WrappedHashToField
 from ..utils.transcript import ALPHA, BETA, GAMMA, ZETA, Transcript
 from . import kzg
+from ..utils.profiling import span
 from .backend import facade_backend, get_backend
 
 R = bn.R
@@ -237,11 +238,13 @@ class PlonkVerifier:
         """On the torch backend of ``device`` ("cuda" or "cpu") where one
         is named, else on the default backend (models/backend.py): the
         card unless ``set_default_backend`` changed it."""
-        backend = facade_backend(device)
-        key = hashlib.sha256(vk).digest()
-        vk_obj = PlonkVerifier._vk_cache.get(key)
-        if vk_obj is None:
-            vk_obj = ser.load_plonk_verifying_key_from_bytes(vk)
-            PlonkVerifier._vk_cache[key] = vk_obj
-        proof_obj = ser.load_plonk_proof_from_bytes(proof)
-        return verify_plonk(vk_obj, proof_obj, public_inputs, backend=backend)
+        with span("bn254.facade.verify"):
+            backend = facade_backend(device)
+            with span("bn254.facade.parse"):
+                key = hashlib.sha256(vk).digest()
+                vk_obj = PlonkVerifier._vk_cache.get(key)
+                if vk_obj is None:
+                    vk_obj = ser.load_plonk_verifying_key_from_bytes(vk)
+                    PlonkVerifier._vk_cache[key] = vk_obj
+                proof_obj = ser.load_plonk_proof_from_bytes(proof)
+            return verify_plonk(vk_obj, proof_obj, public_inputs, backend=backend)

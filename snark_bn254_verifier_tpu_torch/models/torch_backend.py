@@ -15,6 +15,14 @@ to the host:
   pairing_batch_is_one   the same, compared with one on the device; one
                          bool comes back
 
+While a ``torch.profiler`` session records, each primitive call records
+a span (utils/profiling.py), ``bn254.backend.msm`` or
+``bn254.backend.pairing``, with two children: ``bn254.backend.pack`` (the
+host packing and the copies to the device) and ``bn254.backend.read``
+(the copy back, which waits for the card); and the counters
+``bn254.backend.uploads`` (host-to-device copies) and
+``bn254.backend.reads`` (device-to-host copies).
+
 ``TorchBackend.instance(device)`` is the one backend a device that
 ``get_backend("torch")`` (models/backend.py) hands out, as the JAX
 package's ``JaxBackend.instance()``.
@@ -31,7 +39,8 @@ import torch
 
 from ..ops import msm as M
 from ..ops import pairing_cuda as PC
-from .packing import pack_g1, pack_g2, pack_msm, pair_major, unpack_fq12, unpack_g1
+from ..utils.profiling import count, span
+from .packing import g1_from_rows, g1_rows, pack_g1, pack_g2, pack_msm, pair_major, unpack_fq12
 
 
 def resolve_device(device) -> torch.device:
@@ -62,7 +71,15 @@ class TorchBackend:
         return cls._instances[key]
 
     def _to_dev(self, arrays) -> tuple:
+        count("bn254.backend.uploads", len(arrays))
         return tuple(torch.as_tensor(a, device=self.device) for a in arrays)
+
+    @staticmethod
+    def _read(t: torch.Tensor):
+        """``t`` on the host as a numpy array: one copy, after the card."""
+        with span("bn254.backend.read"):
+            count("bn254.backend.reads")
+            return t.cpu().numpy()
 
     # -- MSM ----------------------------------------------------------------
 
@@ -72,9 +89,12 @@ class TorchBackend:
             raise ValueError("one scalar per point")
         if n == 0:
             return None
-        pts, sc = pack_msm(points, scalars)
-        out = M.msm_best(self._to_dev(pts), torch.as_tensor(sc, device=self.device))
-        return unpack_g1(*out)[0]
+        with span("bn254.backend.msm"):
+            with span("bn254.backend.pack"):
+                pts, sc = pack_msm(points, scalars)
+                *pts, sc = self._to_dev((*pts, sc))
+            out = M.msm_best(tuple(pts), sc)
+            return g1_from_rows(self._read(g1_rows(*out)))[0]
 
     def g1_mul(self, point, scalar):
         return self.msm([point], [scalar])
@@ -83,14 +103,17 @@ class TorchBackend:
 
     def _pairs(self, pairs) -> tuple:
         """The pairs as pair-major (P, Q) tensors at batch one."""
-        return (self._to_dev(pair_major(pack_g1, [[p] for p, _ in pairs])),
-                self._to_dev(pair_major(pack_g2, [[q] for _, q in pairs])))
+        with span("bn254.backend.pack"):
+            return (self._to_dev(pair_major(pack_g1, [[p] for p, _ in pairs])),
+                    self._to_dev(pair_major(pack_g2, [[q] for _, q in pairs])))
 
     def pairing(self, p, q):
         return self.pairing_batch([(p, q)])
 
     def pairing_batch(self, pairs):
-        return unpack_fq12(PC.pairing_batch(*self._pairs(pairs)).cpu().numpy())[0]
+        with span("bn254.backend.pairing"):
+            return unpack_fq12(self._read(PC.pairing_batch(*self._pairs(pairs))))[0]
 
     def pairing_batch_is_one(self, pairs):
-        return bool(PC.pairing_batch_is_one(*self._pairs(pairs))[0].item())
+        with span("bn254.backend.pairing"):
+            return bool(self._read(PC.pairing_batch_is_one(*self._pairs(pairs))[:1])[0])

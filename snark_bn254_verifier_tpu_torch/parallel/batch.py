@@ -63,6 +63,16 @@ end. The tensor handed back is a ``HandedOver``: its first use on a
 stream makes that stream wait for its own batch's end, so reading batch
 n-2 waits for batch n-2 alone, as blocking on the JAX package's
 ``jax.Array`` does, and dispatch queues no wait on the caller's stream.
+
+While a ``torch.profiler`` session records, both verifiers record their
+spans and counters (utils/profiling.py): ``bn254.batch.dispatch`` around
+each call, inside it ``bn254.batch.parse`` and ``bn254.batch.pack`` (the
+host stages), ``bn254.ring.wait`` (the wait for a free stream),
+``bn254.batch.upload`` (staging and queueing the copy) and
+``bn254.batch.launch`` (every kernel and glue op queued, the bools
+handed over); counters ``bn254.batch.lanes``, ``bn254.batch.host_rejects``
+(lanes the host's parse and byte checks mask) and
+``bn254.batch.python_parse`` (batches parsed in Python).
 """
 
 from __future__ import annotations
@@ -81,7 +91,7 @@ from ..oracle import bn254 as bn
 from ..utils import errors
 from ..utils import native
 from ..utils import serialization as ser
-from ..utils.profiling import RunStats
+from ..utils.profiling import RunStats, count, span
 from ..models.torch_backend import resolve_device
 from ..models.packing import pack_fq12, pack_fr_columns, pack_g1, pack_g2, packer
 from ..ops import field as F
@@ -107,12 +117,14 @@ class _Stages:
     """Stage times of one batch, taken without waiting for the card: a
     host stage is a ``perf_counter`` lap (``host``); a device stage
     (``device``), on CUDA, the time between two events on the batch's
-    stream, from the last device stage or ``begin``; on the CPU every
-    stage is a host lap. Host time spent queueing device work is no
-    stage. ``ms()`` reads the events, so only after the batch's end."""
+    stream, from the last device stage or ``begin``, where ``events`` asks
+    for them (else it is not timed); on the CPU every stage is a host lap.
+    Host time spent queueing device work is no stage. ``ms()`` reads the
+    events, so only after the batch's end."""
 
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
+    def __init__(self, device: torch.device, events: bool):
+        self.cpu = device.type != "cuda"
+        self.events = events and not self.cpu
         self.start = self.t = time.perf_counter()
         self.total = {}  # stage -> host ms so far
         self.spans = []  # (stage, start event, end event)
@@ -128,17 +140,18 @@ class _Stages:
         self.t = time.perf_counter()
 
     def begin(self) -> None:
-        if self.cuda:
+        if self.events:
             self.last = _event()
         self.resume()
 
     def device(self, stage: str) -> None:
-        if not self.cuda:
+        if self.cpu:
             return self.host(stage)
-        ev = _event()
-        self.spans.append((stage, self.last, ev))
-        self.total.setdefault(stage, 0.0)
-        self.last = ev
+        if self.events:
+            ev = _event()
+            self.spans.append((stage, self.last, ev))
+            self.total.setdefault(stage, 0.0)
+            self.last = ev
         self.resume()
 
     def ms(self) -> dict:
@@ -192,19 +205,23 @@ class _Ring:
         slot = self.slots[self.count % IN_FLIGHT]
         self.count += 1
         if slot.end is not None:
-            slot.end.synchronize()
+            with span("bn254.ring.wait"):
+                slot.end.synchronize()
         slot.end = None
         return slot
 
 
 class _Run:
     """A dispatched batch: its (B,) bool tensor on the device, its stage
-    clock and, on CUDA, its ring slot."""
+    clock and, on CUDA, its ring slot. With ``hand_over``, ``out`` holds
+    the bools for the caller (``handed_over()``), taken as the run is
+    made."""
 
     def __init__(self, ok: torch.Tensor, stages: _Stages, slot: Optional[_Slot] = None,
-                 extra: Optional[dict] = None):
+                 extra: Optional[dict] = None, hand_over: bool = False):
         self.ok, self.stages, self.slot = ok, stages, slot
         self.extra = extra or {}
+        self.out = self.handed_over() if hand_over else None
 
     def handed_over(self, current=None, wait=None) -> torch.Tensor:
         """The bools for the caller, without a host sync and without a
@@ -379,6 +396,16 @@ def _staged(arrays, staging: torch.Tensor, device: torch.device) -> list:
     return [dev[o:o + a.nbytes].view(torch.from_numpy(a[:0]).dtype).view(a.shape)
             for a, o in zip(arrays, offsets)]
 
+
+def _count_lanes(b: int, valid: np.ndarray, parser: str = "native") -> None:
+    """The batch's counters: its lanes, those the host masked, and one
+    batch parsed in Python where ``parser`` says so."""
+    count("bn254.batch.lanes", b)
+    count("bn254.batch.host_rejects", b - int(np.count_nonzero(valid)))
+    if parser == "python":
+        count("bn254.batch.python_parse")
+
+
 class Groth16BatchVerifier(_Flights):
     """VK-specialised batched Groth16 verifier on one torch device."""
 
@@ -419,10 +446,11 @@ class Groth16BatchVerifier(_Flights):
         ``last_stats`` (``extra["stage_ms"]``: host stages by host laps,
         device stages by CUDA events on CUDA; ``extra["host_s"]``: the
         host stages' seconds)."""
-        run = self._dispatch(proofs, public_inputs)
-        ok = run.on_host()
-        self.last_stats = self._stats(run, len(proofs), int(ok.sum()), run.stages.ms())
-        return ok
+        with span("bn254.batch.dispatch"):
+            run = self._dispatch(proofs, public_inputs, hand_over=False)
+            ok = run.on_host()
+            self.last_stats = self._stats(run, len(proofs), int(ok.sum()), run.stages.ms())
+            return ok
 
     def verify_batch_async(self, proofs: Sequence[bytes],
                            public_inputs: Sequence[Sequence[int]]) -> torch.Tensor:
@@ -434,9 +462,10 @@ class Groth16BatchVerifier(_Flights):
         alone; on the CPU a plain tensor. Fills ``last_stats`` with what is
         known without that wait: the host stages, ``elapsed_s`` the call's
         host time, ``n_valid`` None."""
-        run = self._dispatch(proofs, public_inputs)
-        self.last_stats = self._stats(run, len(proofs), None, run.stages.host_ms())
-        return run.handed_over()
+        with span("bn254.batch.dispatch"):
+            run = self._dispatch(proofs, public_inputs, hand_over=True)
+            self.last_stats = self._stats(run, len(proofs), None, run.stages.host_ms())
+            return run.out
 
     def _stats(self, run: _Run, b: int, n_valid: Optional[int], ms: dict) -> RunStats:
         return RunStats(
@@ -451,49 +480,54 @@ class Groth16BatchVerifier(_Flights):
                    "host_s": sum(ms.get(k, 0.0) for k in ("parse_ms", "pack_ms")) / 1e3},
         )
 
-    def _dispatch(self, proofs: Sequence[bytes],
-                  public_inputs: Sequence[Sequence[int]]) -> _Run:
+    def _dispatch(self, proofs: Sequence[bytes], public_inputs: Sequence[Sequence[int]],
+                  hand_over: bool) -> _Run:
         b = len(proofs)
         if len(public_inputs) != b:
             raise ValueError("one public-input list per proof")
-        stages = _Stages(self.device)
-        parsed = self._parse_native(proofs)
-        parser = "native" if parsed is not None else "python"
-        ar, bs, krs, valid = parsed if parsed is not None else self._parse_python(proofs)
-        stages.host("parse_ms")
+        with span("bn254.batch.parse"):
+            stages = _Stages(self.device, events=not hand_over)
+            parsed = self._parse_native(proofs)
+            parser = "native" if parsed is not None else "python"
+            ar, bs, krs, valid = parsed if parsed is not None else self._parse_python(proofs)
+            stages.host("parse_ms")
 
-        # prepared input = 1*k0 + sum in_i * k_{i+1} (k0 folded in with scalar 1)
-        cols = []
-        for i, ins in enumerate(public_inputs):
-            if len(ins) != self.n_inputs:
-                valid[i] = False
-                cols.append(None)
-            else:
-                cols.append([1, *ins])
-        sc = pack_fr_columns(cols, self.n_inputs + 1, b)
-        stages.host("pack_ms")
+        with span("bn254.batch.pack"):
+            # prepared input = 1*k0 + sum in_i * k_{i+1} (k0 folded in with scalar 1)
+            cols = []
+            for i, ins in enumerate(public_inputs):
+                if len(ins) != self.n_inputs:
+                    valid[i] = False
+                    cols.append(None)
+                else:
+                    cols.append([1, *ins])
+            sc = pack_fr_columns(cols, self.n_inputs + 1, b)
+            stages.host("pack_ms")
+        _count_lanes(b, valid, parser)
 
         slot, stream = self._flight()
         with stream:
-            stages.begin()
-            k_points = tuple(v.expand(v.shape[:-1] + (b,)) for v in self._k_points)
-            sc, valid, *flat = self._upload(slot, sc, valid, *ar, *bs, *krs)
-            ar, bs, krs = tuple(flat[:3]), tuple(flat[3:6]), tuple(flat[6:])
-            lines, tails = self.line_tables()
-            stages.device("upload_ms")
+            with span("bn254.batch.upload"):
+                stages.begin()
+                k_points = tuple(v.expand(v.shape[:-1] + (b,)) for v in self._k_points)
+                sc, valid, *flat = self._upload(slot, sc, valid, *ar, *bs, *krs)
+            with span("bn254.batch.launch"):
+                ar, bs, krs = tuple(flat[:3]), tuple(flat[3:6]), tuple(flat[6:])
+                lines, tails = self.line_tables()
+                stages.device("upload_ms")
 
-            if parser == "native":  # the Python parser checked the curve itself
-                valid = PC.g2_on_curve(bs, valid)
-            stages.device("g2_mask_ms")
-            prepared = M.msm_best(k_points, sc)
-            stages.device("msm_ms")
-            f = PC.miller_mixed(ar, bs, (prepared, krs), lines, tails)
-            stages.device("miller_ms")
-            gt = PC.final_exp(f)
-            stages.device("final_exp_ms")
-            ok = T.fq12_eq(gt, self.alpha_beta()) & valid
-            stages.device("compare_ms")
-        return _Run(ok, stages, slot, {"parser": parser})
+                if parser == "native":  # the Python parser checked the curve itself
+                    valid = PC.g2_on_curve(bs, valid)
+                stages.device("g2_mask_ms")
+                prepared = M.msm_best(k_points, sc)
+                stages.device("msm_ms")
+                f = PC.miller_mixed(ar, bs, (prepared, krs), lines, tails)
+                stages.device("miller_ms")
+                gt = PC.final_exp(f)
+                stages.device("final_exp_ms")
+                ok = T.fq12_eq(gt, self.alpha_beta()) & valid
+                stages.device("compare_ms")
+                return _Run(ok, stages, slot, {"parser": parser}, hand_over)
 
     def _parse_native(self, proofs: Sequence[bytes]):
         """Native batch parse (C++); None when the library is unavailable or
@@ -623,10 +657,12 @@ class PlonkBatchVerifier(_Flights):
         draws after its host pass, for the lanes still alive; the bools do
         not depend on the draws). ``verify_batch_async`` plus one copy to
         the host; fills ``last_stats`` (stage times as Groth16's)."""
-        run = self._dispatch(proofs, public_inputs, rng)
-        ok = run.on_host()
-        self.last_stats = self._stats(len(proofs), int(ok.sum()), run.stages, run.stages.ms())
-        return ok
+        with span("bn254.batch.dispatch"):
+            run = self._dispatch(proofs, public_inputs, rng, hand_over=False)
+            ok = run.on_host()
+            self.last_stats = self._stats(len(proofs), int(ok.sum()), run.stages,
+                                          run.stages.ms())
+            return ok
 
     def verify_batch_async(self, proofs: Sequence[bytes],
                            public_inputs: Sequence[Sequence[int]], rng=None) -> torch.Tensor:
@@ -636,54 +672,61 @@ class PlonkBatchVerifier(_Flights):
         and the tensor is handed over as Groth16's is (a ``HandedOver`` on
         CUDA: its first use on a stream waits there for this batch alone).
         Fills ``last_stats`` as Groth16's does."""
-        run = self._dispatch(proofs, public_inputs, rng)
-        self.last_stats = self._stats(len(proofs), None, run.stages, run.stages.host_ms())
-        return run.handed_over()
+        with span("bn254.batch.dispatch"):
+            run = self._dispatch(proofs, public_inputs, rng, hand_over=True)
+            self.last_stats = self._stats(len(proofs), None, run.stages, run.stages.host_ms())
+            return run.out
 
     def _dispatch(self, proofs: Sequence[bytes], public_inputs: Sequence[Sequence[int]],
-                  rng) -> _Run:
+                  rng, hand_over: bool) -> _Run:
         lvk = self._lanes_vk
         b = len(proofs)
         if len(public_inputs) != b:
             raise ValueError("one public-input list per proof")
-        stages = _Stages(self.device)
-        raw, valid = PL.pack_proofs(proofs, lvk)
-        counted = np.fromiter((len(ins) == lvk.nb_pub for ins in public_inputs), dtype=bool,
-                              count=b)
-        valid &= counted  # InvalidWitnessError otherwise
-        stages.host("parse_ms")
+        with span("bn254.batch.parse"):
+            stages = _Stages(self.device, events=not hand_over)
+            raw, valid = PL.pack_proofs(proofs, lvk)
+            counted = np.fromiter((len(ins) == lvk.nb_pub for ins in public_inputs),
+                                  dtype=bool, count=b)
+            valid &= counted  # InvalidWitnessError otherwise
+            stages.host("parse_ms")
+        _count_lanes(b, valid)
         if not valid.any():  # no lane reaches the card
-            return _Run(torch.zeros(b, dtype=torch.bool, device=self.device), stages)
+            return _Run(torch.zeros(b, dtype=torch.bool, device=self.device), stages,
+                        hand_over=hand_over)
 
-        pub = pack_fr_columns([ins if ok else None for ins, ok in zip(public_inputs, counted)],
-                               lvk.nb_pub, b)
-        rand_fr = rng if rng is not None else (lambda: secrets.randbelow(R - 1) + 1)
-        rand = pack_fr_columns([[rand_fr()] if ok else None for ok in valid], 1, b)[0]
-        stages.host("pack_ms")
+        with span("bn254.batch.pack"):
+            pub = pack_fr_columns([ins if ok else None
+                                   for ins, ok in zip(public_inputs, counted)], lvk.nb_pub, b)
+            rand_fr = rng if rng is not None else (lambda: secrets.randbelow(R - 1) + 1)
+            rand = pack_fr_columns([[rand_fr()] if ok else None for ok in valid], 1, b)[0]
+            stages.host("pack_ms")
 
         slot, stream = self._flight()
         with stream:
-            stages.begin()
-            raw, pub, rand, valid = self._upload(slot, raw, pub, rand, valid)
-            lines, tails = self._kzg_tables()
-            stages.device("upload_ms")
-            # K7a: the lanes' checks, transcripts and linearisation scalars
-            valid, zeta, lane_pts, lin_sc = PC.plonk_lanes_a(raw, pub, valid, lvk)
-            pts = tuple(torch.cat([a, v.expand(v.shape[:-1] + (b,))])
-                        for a, v in zip(lane_pts, self._vk_points))
-            stages.device("lanes_a_ms")
+            with span("bn254.batch.upload"):
+                stages.begin()
+                raw, pub, rand, valid = self._upload(slot, raw, pub, rand, valid)
+            with span("bn254.batch.launch"):
+                lines, tails = self._kzg_tables()
+                stages.device("upload_ms")
+                # K7a: the lanes' checks, transcripts and linearisation scalars
+                valid, zeta, lane_pts, lin_sc = PC.plonk_lanes_a(raw, pub, valid, lvk)
+                pts = tuple(torch.cat([a, v.expand(v.shape[:-1] + (b,))])
+                            for a, v in zip(lane_pts, self._vk_points))
+                stages.device("lanes_a_ms")
 
-            def take(idx):
-                return tuple(t.index_select(0, idx) for t in pts)
+                def take(idx):
+                    return tuple(t.index_select(0, idx) for t in pts)
 
-            digest = M.msm_best(take(self._lin), lin_sc)
-            stages.device("msm_a_ms")
-            # K7b: the KZG fold challenge binds the digest, on the card
-            sc = PC.plonk_lanes_b(raw, valid, zeta, rand, digest, lvk)
-            stages.device("lanes_b_ms")
-            ok = _plonk_final(take, self._combo_rest, self._quot, digest, sc, lines, tails,
-                              self._one, valid, stages.device)
-        return _Run(ok, stages, slot)
+                digest = M.msm_best(take(self._lin), lin_sc)
+                stages.device("msm_a_ms")
+                # K7b: the KZG fold challenge binds the digest, on the card
+                sc = PC.plonk_lanes_b(raw, valid, zeta, rand, digest, lvk)
+                stages.device("lanes_b_ms")
+                ok = _plonk_final(take, self._combo_rest, self._quot, digest, sc, lines,
+                                  tails, self._one, valid, stages.device)
+                return _Run(ok, stages, slot, hand_over=hand_over)
 
     def _stats(self, b: int, n_valid: Optional[int], stages: _Stages, ms: dict) -> RunStats:
         return RunStats(

@@ -1,0 +1,196 @@
+"""Where the program records its spans and counters: both batch verifiers
+and both facades on ``device="cpu"``, each call traced by a CPU-only
+torch.profiler, give the span names of utils/profiling.py's layers, each
+under its parent, and their counters; the benchmark's readers read the
+table they leave.
+
+The heavy kernels' plain twins (the MSM, the Miller products, the final
+exponentiation, the single call's pairings) are stood in by results of
+their shapes: the verdicts are not under test here, and the profiler
+would otherwise record the twins' millions of tensor ops."""
+
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from snark_bn254_verifier_tpu_torch import (Groth16BatchVerifier, Groth16Verifier,
+                                            PlonkBatchVerifier, PlonkVerifier)
+from snark_bn254_verifier_tpu_torch.fixtures.gen import gen_groth16_vector, gen_plonk_vector
+from snark_bn254_verifier_tpu_torch.fixtures.groth16_lanes import groth16_batch_lanes
+from snark_bn254_verifier_tpu_torch.fixtures.plonk_lanes import plonk_batch_lanes
+from snark_bn254_verifier_tpu_torch.models.packing import pack_g1
+from snark_bn254_verifier_tpu_torch.ops import msm as M
+from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
+from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
+from snark_bn254_verifier_tpu_torch.utils import errors, profiling
+
+ROOT = Path(__file__).resolve().parent.parent
+BATCH_SPANS = {"bn254.batch.dispatch": None,
+               "bn254.batch.parse": "bn254.batch.dispatch",
+               "bn254.batch.pack": "bn254.batch.dispatch",
+               "bn254.batch.upload": "bn254.batch.dispatch",
+               "bn254.batch.launch": "bn254.batch.dispatch"}
+FACADE_SPANS = {"bn254.facade.verify": None,
+                "bn254.facade.parse": "bn254.facade.verify",
+                "bn254.backend.msm": "bn254.facade.verify",
+                "bn254.backend.pairing": "bn254.facade.verify",
+                "bn254.backend.read": "bn254.backend.pairing",
+                "bn254.backend.pack": "bn254.backend.pairing"}
+
+
+@pytest.fixture
+def light(monkeypatch):
+    """The heavy twins stood in: every MSM gives the generator, every
+    Miller product and pairing an Fq12 of zeros (so no pairing is one)."""
+
+    def msm_best(points, scalars, c=8):
+        return tuple(torch.as_tensor(a) for a in pack_g1([bn.G1_GEN] * points[0].shape[-1]))
+
+    def fq12(b):
+        return torch.zeros((16, 12, b), dtype=torch.int32)
+
+    monkeypatch.setattr(M, "msm_best", msm_best)
+    monkeypatch.setattr(PC, "miller_mixed", lambda p, q, fixed, *tables: fq12(
+        fixed[0][0].shape[-1]))
+    monkeypatch.setattr(PC, "final_exp", lambda f: f)
+    monkeypatch.setattr(PC, "pairing_batch", lambda ps, qs: fq12(ps[0].shape[-1]))
+    monkeypatch.setattr(PC, "pairing_batch_is_one",
+                        lambda ps, qs: torch.zeros(ps[0].shape[-1], dtype=torch.bool))
+    # e(alpha, beta) from the stand-ins must not reach another test's cache
+    monkeypatch.setattr(Groth16Verifier, "_cache", {})
+
+
+def traced(call):
+    """``call()`` with a profiler on, after one untraced call that warms
+    the caches (and ends the table's stretch); the table and the result."""
+    try:
+        call()
+    except errors.VerifierError:
+        pass
+    with profile(activities=[ProfilerActivity.CPU]):
+        try:
+            out = call()
+        except errors.VerifierError as e:
+            out = e
+    return profiling.snapshot(), out
+
+
+def parents(snap):
+    return {name: s["parent"] for name, s in snap["spans"].items()}
+
+
+def reader(name: str):
+    path = ROOT / "verify_bench" / "metrics" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"reader_{name.replace('.', '_')}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
+
+
+@pytest.mark.parametrize("sync", [False, True], ids=["async", "sync"])
+def test_groth16_batch_spans_and_counters(light, sync):
+    """Native parse, lanes 3 (A corrupted) and 11 (one input short) masked
+    on the host; lane 5 (B off the curve) is the card's to mask."""
+    vec, proofs, inputs, _ = groth16_batch_lanes(12)
+    ver = Groth16BatchVerifier(vec.vk, device="cpu")
+    call = ver.verify_batch if sync else ver.verify_batch_async
+    snap, ok = traced(lambda: call(proofs, inputs))
+    assert len(ok) == 12 and ver.last_stats.extra["parser"] == "native"
+    assert parents(snap) == BATCH_SPANS  # no ring on the CPU: no wait
+    assert all(s["count"] == 1 for s in snap["spans"].values())
+    assert snap["counters"] == {"bn254.batch.lanes": 12, "bn254.batch.host_rejects": 2}
+    d = snap["spans"]["bn254.batch.dispatch"]
+    children = sum(snap["spans"][n]["total_s"] for n, parent in BATCH_SPANS.items() if parent)
+    assert d["total_s"] == pytest.approx(d["self_s"] + children, rel=1e-6)
+    # the parse span holds the parse lap; the pack lap also holds the
+    # step from one span to the next
+    stage_ms, spans = ver.last_stats.extra["stage_ms"], snap["spans"]
+    assert spans["bn254.batch.parse"]["total_s"] * 1e3 >= stage_ms["parse_ms"]
+    parse_pack = spans["bn254.batch.parse"]["total_s"] + spans["bn254.batch.pack"]["total_s"]
+    assert parse_pack == pytest.approx(ver.last_stats.extra["host_s"], abs=1e-3)
+    assert reader("enqueue_ms.batch")({"trace": {}}) > 0
+    assert reader("slot_wait_ms.batch")({"trace": {}}) == 0.0
+
+
+def test_a_ragged_groth16_batch_counts_one_python_parse(light):
+    vec, proofs, inputs, _ = groth16_batch_lanes(4)
+    proofs = [proofs[0], proofs[1][:100], *proofs[2:]]  # lane 1 truncated
+    ver = Groth16BatchVerifier(vec.vk, device="cpu")
+    snap, _ = traced(lambda: ver.verify_batch_async(proofs, inputs))
+    assert ver.last_stats.extra["parser"] == "python"
+    assert parents(snap) == BATCH_SPANS
+    assert snap["counters"] == {"bn254.batch.lanes": 4, "bn254.batch.host_rejects": 2,
+                                "bn254.batch.python_parse": 1}  # lanes 1 and 3
+
+
+def test_plonk_batch_spans_and_counters(light):
+    vec, proofs, inputs, _ = plonk_batch_lanes(4, {1: "truncated", 2: "wrong_count"})
+    ver = PlonkBatchVerifier(vec.vk, device="cpu")
+    snap, ok = traced(lambda: ver.verify_batch_async(proofs, inputs, rng=lambda: 7))
+    assert len(ok) == 4
+    assert parents(snap) == BATCH_SPANS
+    assert snap["counters"] == {"bn254.batch.lanes": 4, "bn254.batch.host_rejects": 2}
+
+
+def test_a_plonk_batch_masked_on_the_host_is_parsed_only(light):
+    vec, proofs, inputs, _ = plonk_batch_lanes(2, {0: "truncated", 1: "truncated"})
+    ver = PlonkBatchVerifier(vec.vk, device="cpu")
+    snap, ok = traced(lambda: ver.verify_batch_async(proofs, inputs))
+    assert ok.tolist() == [False, False]
+    assert parents(snap) == {"bn254.batch.dispatch": None,
+                             "bn254.batch.parse": "bn254.batch.dispatch"}
+    assert snap["counters"] == {"bn254.batch.lanes": 2, "bn254.batch.host_rejects": 2}
+
+
+def test_groth16_facade_spans_and_counters(light):
+    """One K2 call (prepared input) and one pairing product a call: two
+    reads back, four uploads for the MSM and six for the pairs."""
+    vec = gen_groth16_vector(0)
+    snap, ok = traced(lambda: Groth16Verifier.verify(vec.proof, vec.vk, vec.public_inputs,
+                                                     device="cpu"))
+    assert isinstance(ok, bool)
+    assert parents(snap) == FACADE_SPANS
+    assert {n: s["count"] for n, s in snap["spans"].items()} == {
+        "bn254.facade.verify": 1, "bn254.facade.parse": 1, "bn254.backend.msm": 1,
+        "bn254.backend.pairing": 1, "bn254.backend.pack": 2, "bn254.backend.read": 2}
+    assert snap["counters"] == {"bn254.backend.uploads": 10, "bn254.backend.reads": 2}
+    assert reader("readbacks.single")({"trace": {}}) == 2.0
+    facade = reader("facade_ms.single")({"trace": {}})
+    pack = reader("backend_pack_ms.single")({"trace": {}})
+    assert 0 < facade and 0 < pack
+    assert facade + pack <= snap["spans"]["bn254.facade.verify"]["total_s"] * 1e3
+
+
+def test_groth16_facade_refused_at_parse_reads_nothing_back(light):
+    vec = gen_groth16_vector(0)
+    snap, out = traced(lambda: Groth16Verifier.verify(vec.proof[:100], vec.vk,
+                                                      vec.public_inputs, device="cpu"))
+    assert isinstance(out, errors.VerifierError)
+    assert parents(snap) == {"bn254.facade.verify": None,
+                             "bn254.facade.parse": "bn254.facade.verify"}
+    assert snap["counters"] == {}
+    assert reader("readbacks.single")({"trace": {}}) == 0.0
+
+
+def test_plonk_facade_spans(light):
+    """verify_plonk's MSMs (the linearisation's, the KZG fold's) and its
+    two-pair check; the stand-ins' check fails, so the call raises."""
+    vec = gen_plonk_vector(0)
+    snap, out = traced(lambda: PlonkVerifier.verify(vec.proof, vec.vk, vec.public_inputs,
+                                                    device="cpu"))
+    assert isinstance(out, errors.VerifierError)
+    spans = snap["spans"]
+    assert parents(snap) == {**FACADE_SPANS, "bn254.backend.pack": spans[
+        "bn254.backend.pack"]["parent"], "bn254.backend.read": spans[
+        "bn254.backend.read"]["parent"]}
+    assert spans["bn254.backend.pairing"]["count"] == 1
+    msms = spans["bn254.backend.msm"]["count"]
+    assert msms >= 2
+    assert spans["bn254.backend.pack"]["count"] == spans["bn254.backend.read"]["count"] \
+        == msms + 1 == snap["counters"]["bn254.backend.reads"]
+    assert np.isclose(spans["bn254.facade.verify"]["total_s"],
+                      sum(s["self_s"] for s in spans.values()))
