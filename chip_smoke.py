@@ -26,15 +26,21 @@ It builds the port's CUDA kernels from csrc/, then
      pass) on the PlonK batch's own 1024 lanes, a bad lane of every kind
      among them, bit for bit against their twins, K7a's valid bits against
      the verdicts, with its registers, local and shared bytes and warps
-     and lanes a block; and computes each kernel's bound from the work its
-     twin counts (for K7 its products and SHA-256 compressions, its Fermat
-     inversion charged as the kernel's cheaper divsteps);
+     and lanes a block; the fixed-base MSM (msm_fixed) at the Groth16
+     batch cell's shape (4 points, 2048 lanes) and the single call's (3
+     points, B = 1), on window tables built by K2, exact against its
+     twin, K2 and the oracle, timed beside K2, and storing nothing past
+     its last lane; and computes each kernel's bound from the work its
+     twin counts (for K7 its products and SHA-256 compressions, its
+     Fermat inversion charged as the kernel's cheaper divsteps; for
+     msm_fixed a mixed add a nonzero digit, and the table entries its
+     digits pick);
   2. drives the batched Groth16 path, ``Groth16BatchVerifier(vk,
      device="cuda")`` on a batch of 1024 proofs of the bench vector with
      bad lanes at fixed positions, checks the exact bool vector and that
-     its kernels (K1 in its fused form g2_on_curve, exactly once, and
-     K2-K4) were launched, checks a small batch against the CPU run, and
-     times warm batches;
+     its kernels (K1 in its fused form g2_on_curve, exactly once,
+     msm_fixed, K3 and K4) were launched, checks a small batch against
+     the CPU run, and times warm batches;
   3. drives the PlonK batch, ``PlonkBatchVerifier(vk, device="cuda")`` on
      1024 lanes of the synthetic BSB22 vector with bad lanes of every kind
      spread over the batch (fixtures/plonk_lanes.py), checks the exact
@@ -53,7 +59,8 @@ It builds the port's CUDA kernels from csrc/, then
      wrong input value, a wrong input count, a corrupted proof byte and,
      for PlonK, a doubled opening proof that fails in the pairing check;
      each result or exception must equal the oracle backend's, and its
-     kernels (K2, K4, K5) must have been launched; then times warm calls
+     kernels (msm_fixed for Groth16, K2 for PlonK, K4, K5) must have been
+     launched; then times warm calls
      and splits one call into its primitives;
   5. drives the large MSM: ``TorchBackend.msm`` at 80 points (K6) and
      ``sharded_msm`` on 2^16 points over a world-size-1 NCCL group (K6's
@@ -93,8 +100,9 @@ import time
 
 # The card's model (peaks, products a Montgomery multiply, bounds) is the
 # port's utils/roofline.py, which the bench's roofline fields use too.
-from snark_bn254_verifier_tpu_torch.utils.roofline import (bound, count_fp_muls, lane_pass_work,
-                                                           pippenger_work)
+from snark_bn254_verifier_tpu_torch.utils.roofline import (bound, count_fp_muls,
+                                                           fixed_msm_bytes, fixed_msm_work,
+                                                           lane_pass_work, pippenger_work)
 
 BATCH = 1024  # proofs per batch, the batch the repo's bench verifies
 ITERS = 3     # warm slice runs timed
@@ -102,7 +110,7 @@ SINGLE_ITERS = 10  # warm single-proof calls timed, per protocol
 SEED = 0
 CSRC = "snark_bn254_verifier_tpu_torch/csrc/"
 SOURCE = {"mont_mul": CSRC + "fp.cuh", "g2_on_curve": CSRC + "curve.cuh",
-          "msm_affine": CSRC + "msm.cuh",
+          "msm_affine": CSRC + "msm.cuh", "msm_fixed": CSRC + "msm_fixed.cuh",
           "miller_mixed": CSRC + "team.cuh", "final_exp": CSRC + "team.cuh",
           "miller_product": CSRC + "team.cuh", "msm_pippenger": CSRC + "pippenger.cuh",
           "plonk_lanes_a": CSRC + "plonk.cuh", "plonk_lanes_b": CSRC + "plonk.cuh"}
@@ -110,13 +118,15 @@ SOURCE = {"mont_mul": CSRC + "fp.cuh", "g2_on_curve": CSRC + "curve.cuh",
 # its block, a warp a role over the block's lanes, so its threads a lane
 # are its warps a block)
 TEAM_KERNELS = ("msm_affine", "miller_mixed", "final_exp", "miller_product", "plonk_lanes_a",
-                "plonk_lanes_b")
+                "plonk_lanes_b", "msm_fixed")
 PALLAS = "snark_bn254_verifier_tpu/ops/"
 # kernel -> (TPU kernels it replaces, file:line); the first is "replaces"
 REPLACES = {
     "mont_mul": [PALLAS + "field_pallas.py:37"],
     "g2_on_curve": [PALLAS + "field_pallas.py:37"],
     "msm_affine": [PALLAS + "pairing_pallas.py:206", PALLAS + "pairing_pallas.py:271"],
+    # the same TPU kernels where the points are fixed (a VK's)
+    "msm_fixed": [PALLAS + "pairing_pallas.py:206", PALLAS + "pairing_pallas.py:271"],
     "miller_mixed": [PALLAS + "pairing_pallas.py:99"],
     "final_exp": [PALLAS + "pairing_pallas.py:179", PALLAS + "pairing_pallas.py:191"],
     "miller_product": [PALLAS + "pairing_pallas.py:84", PALLAS + "pairing_pallas.py:171"],
@@ -1026,6 +1036,98 @@ def phase_plonk_lanes_b(ctx):
     return plonk_lanes_results(ctx)["plonk_lanes_b"]
 
 
+FIXED_LANES = 2048  # the Groth16 batch cell's lanes
+
+
+def phase_msm_fixed(ctx):
+    """The fixed-base MSM at the Groth16 batch cell's shape (4 points,
+    FIXED_LANES lanes, k0's scalar 1 past the edge lanes, as the batch
+    passes it) and the single call's (3 points, B = 1), the last point of
+    each at infinity (fixtures/msm_lanes.py::fixed_base_lanes): the
+    points' window table built by K2 on the card (the build timed) and
+    exact against the plain twin's; the kernel exact against its plain
+    twin and against K2 on the same points and scalars, its first lanes
+    against the oracle, and its time (in a CUDA graph) beside K2's on the
+    same inputs; at the batch shape, nothing stored past the last lane."""
+    import numpy as np
+    import torch
+
+    from snark_bn254_verifier_tpu_torch.fixtures.msm_lanes import (FIXED_BASE_EDGES,
+                                                                   fixed_base_lanes)
+    from snark_bn254_verifier_tpu_torch.models.packing import pack_g1, pair_major, unpack_g1
+    from snark_bn254_verifier_tpu_torch.ops import msm as M
+    from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
+    from snark_bn254_verifier_tpu_torch.ops.limbs import FR
+    from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
+
+    out = {"max_abs_err": 0, "window": M.FIXED_WINDOW}
+    edges = len(FIXED_BASE_EDGES)
+    for label, n, b in (("batch", 4, FIXED_LANES), ("single", 3, 1)):
+        pts, scs, logs = fixed_base_lanes(n, max(b, edges + 1), SEED + n)
+        if b == 1:  # the single call's scalars: the inputs, random (a lane past the edges)
+            scs = [s[-1:] for s in scs]
+        for lane in range(edges, b):
+            scs[0][lane] = 1
+        points = tuple(torch.as_tensor(a, device=ctx.dev) for a in pack_g1(pts))
+        sc = torch.as_tensor(np.stack([FR.pack(s, mont=False) for s in scs]), device=ctx.dev)
+        lanes = tuple(torch.as_tensor(a, device=ctx.dev)
+                      for a in pair_major(pack_g1, [[p] * b for p in pts]))
+        k2 = PC.msm_affine(lanes, sc)
+        k2_ms = time_kernel(lambda: PC.msm_affine(lanes, sc), 3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        table = PC.fixed_base_table(points)
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        require(torch.equal(table.cpu(), M.fixed_table_plain(tuple(t.cpu() for t in points))),
+                f"msm_fixed ({label}): table != twin's")
+        got = PC.msm_fixed(table, sc)
+        want, plain_ms = time_plain(lambda: M.msm_fixed_plain(table, sc))
+        err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]),
+                  int((got[2] != want[2]).sum().item()))
+        require(err == 0, f"msm_fixed ({label}) differs from its plain twin")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        require(all(torch.equal(g, k) for g, k in zip(got, k2)),
+                f"msm_fixed ({label}) differs from K2")
+        check = list(range(min(b, 8)))
+        want_pts = [bn.g1_mul(bn.G1_GEN, sum(s[lane] * k for s, k in zip(scs, logs)) % bn.R)
+                    for lane in check]
+        require(unpack_g1(*(t[..., :len(check)] for t in got)) == want_pts,
+                f"msm_fixed ({label}) != oracle")
+        ms = time_graph(lambda: PC.msm_fixed(table, sc), 20)
+        inf, sc_cpu = points[2].cpu(), sc.cpu()
+        work = fixed_msm_work(inf, sc_cpu)
+        bnd = bound(work, fixed_msm_bytes(inf, sc_cpu))
+        table_bytes = table.numel() * table.element_size()
+        print(f"msm_fixed {label} n={n} B={b}: exact vs plain, K2 and oracle; "
+              f"kernel {ms:.4f} ms (K2 {k2_ms:.3f}), plain {plain_ms:.1f} ms, bound "
+              f"{bnd['bound_ms']:.6f} ms ({bnd['bound_by']}), table "
+              f"{table_bytes / 2**20:.2f} MiB built in {build_ms:.1f} ms")
+        out.update({f"ms_{label}": ms, f"plain_ms_{label}": plain_ms, f"k2_ms_{label}": k2_ms,
+                    f"bound_ms_{label}": bnd["bound_ms"], f"fp_muls_{label}": work,
+                    f"table_build_ms_{label}": build_ms, f"table_bytes_{label}": table_bytes,
+                    f"shape_{label}": [n, 16, b]})
+        if label == "batch":
+            out.update(ms=ms, plain_ms=plain_ms, **bnd)
+            main = (table, sc)
+    # lanes past the end store nothing: the entry on sentinel buffers
+    table, sc = main
+    b = sc.shape[-1] - 5
+    ox = torch.full((16 * b + 64,), -7, dtype=torch.int32, device=ctx.dev)
+    oy = torch.full_like(ox, -7)
+    oinf = torch.full((b + 64,), 7, dtype=torch.uint8, device=ctx.dev)
+    part = sc[..., :b].contiguous()
+    PC.launch(ctx.dev, "bn_msm_fixed", table.data_ptr(), part.data_ptr(), sc.shape[0],
+              ox.data_ptr(), oy.data_ptr(), oinf.data_ptr(), b)
+    torch.cuda.synchronize()
+    require(bool((ox[16 * b:] == -7).all() and (oy[16 * b:] == -7).all()
+                 and (oinf[b:] == 7).all()), "msm_fixed stored past the last lane")
+    require(torch.equal(ox[:16 * b].view(16, b), PC.msm_fixed(table, part)[0]),
+            "msm_fixed on the sentinel buffers differs")
+    print(f"msm_fixed: nothing stored past lane {b - 1} of {b}")
+    return out
+
+
 # One on-card phase per entry of KERNEL_ENTRY_POINTS (checked by
 # tests/test_torch_kernel_registry.py).
 KERNEL_PHASES = {
@@ -1038,13 +1140,14 @@ KERNEL_PHASES = {
     "msm_pippenger": phase_msm_pippenger,
     "plonk_lanes_a": phase_plonk_lanes_a,
     "plonk_lanes_b": phase_plonk_lanes_b,
+    "msm_fixed": phase_msm_fixed,
 }
 # The kernels each path launches; together they cover KERNEL_ENTRY_POINTS
 # but UNLAUNCHED, K1's elementwise form (its fused form runs on the slice).
-SLICE_KERNELS = ("g2_on_curve", "msm_affine", "miller_mixed", "final_exp")
+SLICE_KERNELS = ("g2_on_curve", "msm_fixed", "miller_mixed", "final_exp")
 PLONK_BATCH_KERNELS = ("plonk_lanes_a", "msm_affine", "plonk_lanes_b", "miller_mixed",
                        "final_exp")
-SINGLE_KERNELS = ("msm_affine", "final_exp", "miller_product")
+SINGLE_KERNELS = ("msm_affine", "msm_fixed", "final_exp", "miller_product")
 LARGE_MSM_KERNELS = ("msm_pippenger",)
 UNLAUNCHED = ("mont_mul",)
 PIPELINED = 8  # batches of each pipelined loop, at most two in flight (bench.py:105-116)
@@ -1404,8 +1507,8 @@ def oracle_verify(proto, proof, vk, inputs):
 
 def split_call(proto, proof, vk, inputs):
     """Host ms of one warm call of the shared protocol code, and of each
-    primitive it made (msm: K2, pairing: K5 + K4, each with its packing
-    and its copy back)."""
+    primitive it made (msm: K2, msm_fixed: the fixed-base MSM, pairing:
+    K5 + K4, each with its packing and its copy back)."""
     import torch
 
     from snark_bn254_verifier_tpu_torch.models.groth16 import PreparedVerifyingKey, verify_groth16
@@ -1428,6 +1531,9 @@ def split_call(proto, proof, vk, inputs):
 
         def msm(self, points, scalars):
             return self._timed("msm", len(points), super().msm, points, scalars)
+
+        def msm_fixed(self, table, scalars):
+            return self._timed("msm_fixed", len(scalars), super().msm_fixed, table, scalars)
 
         def pairing_batch(self, pairs):
             return self._timed("pairing", len(pairs), super().pairing_batch, pairs)
@@ -1456,7 +1562,8 @@ def split_call(proto, proof, vk, inputs):
 
 def run_single(iters: int):
     """The single-proof path on the card: every case's outcome equal to the
-    oracle backend's, K2/K4/K5 launched, then warm latency."""
+    oracle backend's, K2 (PlonK), msm_fixed (Groth16), K4 and K5 launched,
+    then warm latency."""
     import statistics
 
     from snark_bn254_verifier_tpu_torch import Groth16Verifier, PlonkVerifier

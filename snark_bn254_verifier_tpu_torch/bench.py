@@ -85,6 +85,7 @@ KERNEL_VALIDATION_COVERAGE = {
     "mont_mul": ("mont_mul",),
     "g2_on_curve": ("g2_on_curve",),
     "msm": ("msm_affine", "msm_pippenger"),
+    "msm_fixed": ("msm_fixed",),
     "miller_final_exp": ("miller_product", "final_exp"),
     "miller_mixed_var": ("miller_mixed", "final_exp"),
     "miller_mixed_fixed_only": ("miller_mixed",),
@@ -417,6 +418,18 @@ def _kernel_stages(device: str, b: int) -> dict:
                 and exact(k6, lambda: M.pippenger_plain(points, sc))
                 and _same(k2, k6) and unpack_g1(*k2) == want)
 
+    def msm_fixed():
+        """Two fixed points' window table (built by K2 on the card) and the
+        fixed-base MSM over it, k0's scalar 1 in lane 0."""
+        pts = g1s(2)
+        scs = [[rng.randrange(bn.R) for _ in range(b)] for _ in pts]
+        scs[0][0], scs[1][0] = 1, 0
+        table = PC.fixed_base_table(dev(pack_g1(pts)))
+        sc = torch.as_tensor(np.stack([FR.pack(s, mont=False) for s in scs]), device=device)
+        got = PC.msm_fixed(table, sc)
+        want = [bn.g1_msm(pts, [s[lane] for s in scs]) for lane in range(b)]
+        return exact(got, lambda: M.msm_fixed_plain(table, sc)) and unpack_g1(*got) == want
+
     def check_gt(f, twin_f, pairs, final_exp_twin=False) -> bool:
         """The Miller value exact against its twin, its final
         exponentiation (against the twin too where asked: once, the twin
@@ -486,6 +499,7 @@ def _kernel_stages(device: str, b: int) -> dict:
 
     stages = {}
     for name, fn in (("mont_mul", mont_mul), ("g2_on_curve", g2_on_curve), ("msm", msm),
+                     ("msm_fixed", msm_fixed),
                      ("miller_final_exp", miller_final_exp),
                      ("miller_mixed_var", miller_mixed_var),
                      ("miller_mixed_fixed_only", miller_mixed_fixed_only),

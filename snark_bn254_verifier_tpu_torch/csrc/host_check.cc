@@ -4,10 +4,10 @@
 // tower/curve/pairing formulas are checked without a card. K1 and its
 // fused form, the G2 on-curve mask, SHA-256 and K7's inverse run lane by
 // lane; K7's blocks (the PlonK lane pass) stage by stage, each thread of a
-// block through a stage before the next; the team kernels (K2-K5) and
-// K6's block stages block by block, each thread of a block as a host
-// thread, meeting at a barrier wherever the card's threads meet at
-// __syncthreads.
+// block through a stage before the next; the team kernels (K2-K5, the
+// fixed-base MSM) and K6's block stages block by block, each thread of a
+// block as a host thread, meeting at a barrier wherever the card's
+// threads meet at __syncthreads.
 // It is built twice, with each form of the Montgomery product
 // (BN_ROLLED_CIOS, fp.cuh), so each kernel's tests run the form its unit
 // runs on the card. The main path never loads this library.
@@ -16,6 +16,7 @@
 #include <thread>
 #include <vector>
 
+#include "msm_fixed.cuh"
 #include "pippenger.cuh"
 #include "plonk.cuh"
 
@@ -120,6 +121,18 @@ int host_msm_affine(const int32_t* px, const int32_t* py, const uint8_t* pinf,
   host_team_grid(n, MSM_TEAM, MSM_LPB, msm_affine_smem_bytes(),
                  [&](int tid, long long block, uint32_t* smem) {
                    msm_affine_team(tid, block, smem, px, py, pinf, sc, npts, ox, oy, oinf, n);
+                 });
+  return 0;
+}
+
+// The fixed-base MSM (msm_fixed.cuh) over its window table.
+int host_msm_fixed(const int32_t* table, const int32_t* sc, int npts, int32_t* ox, int32_t* oy,
+                   uint8_t* oinf, long long n) {
+  if (npts < 1) return 1;
+  host_team_grid(n, FX_TEAM, FX_LPB, msm_fixed_smem_bytes(),
+                 [&](int tid, long long block, uint32_t* smem) {
+                   msm_fixed_team(tid, block, smem, (const uint32_t*)table, sc, npts, ox, oy,
+                                  oinf, n);
                  });
   return 0;
 }

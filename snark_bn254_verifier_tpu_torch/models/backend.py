@@ -3,7 +3,10 @@
 The port's copy of the JAX package's models/backend.py. The verifiers
 (models/groth16.py, models/plonk.py) express all heavy math through three
 primitives — MSM, pairing, batched pairing — so the same protocol logic
-runs against either:
+runs against either (a backend may also offer a fixed-base MSM over a
+table it builds once, ``fixed_base_table`` and ``msm_fixed``; where
+``fixed_base_table`` gives None, as the oracle's does, the plain MSM
+serves):
 
   * the ``oracle`` backend: pure-Python ints (ground truth, always available)
   * the ``torch`` backend (models/torch_backend.py::TorchBackend): the
@@ -33,6 +36,11 @@ class OracleBackend:
     @staticmethod
     def msm(points, scalars):
         return bn.g1_msm(points, scalars)
+
+    @staticmethod
+    def fixed_base_table(points):
+        """None: the oracle keeps its plain MSM for fixed points too."""
+        return None
 
     @staticmethod
     def g1_mul(point, scalar):

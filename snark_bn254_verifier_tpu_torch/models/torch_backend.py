@@ -10,13 +10,17 @@ to the host:
   msm, g1_mul            ops/msm.py::msm_best at batch one (a point per
                          row): kernel K6 (Pippenger) from 16 points,
                          else kernel K2
+  msm_fixed              ops/pairing_cuda.py::msm_fixed at batch one, over
+                         the window table that ``fixed_base_table`` built
+                         once (a VK's points, at most FIXED_MAX_POINTS of
+                         them): only the scalars go up
   pairing, pairing_batch ops/pairing_cuda.py::pairing_batch: kernel K5
                          over the pairs, then kernel K4
   pairing_batch_is_one   the same, compared with one on the device; one
                          bool comes back
 
 While a ``torch.profiler`` session records, each primitive call records
-a span (utils/profiling.py), ``bn254.backend.msm`` or
+a span (utils/profiling.py), ``bn254.backend.msm`` (both MSMs) or
 ``bn254.backend.pairing``, with two children: ``bn254.backend.pack`` (the
 host packing and the copies to the device) and ``bn254.backend.read``
 (the copy back, which waits for the card); and the counters
@@ -40,7 +44,8 @@ import torch
 from ..ops import msm as M
 from ..ops import pairing_cuda as PC
 from ..utils.profiling import count, span
-from .packing import g1_from_rows, g1_rows, pack_g1, pack_g2, pack_msm, pair_major, unpack_fq12
+from .packing import (g1_from_rows, g1_rows, pack_fr_columns, pack_g1, pack_g2, pack_msm,
+                      pair_major, unpack_fq12)
 
 
 def resolve_device(device) -> torch.device:
@@ -94,6 +99,24 @@ class TorchBackend:
                 pts, sc = pack_msm(points, scalars)
                 *pts, sc = self._to_dev((*pts, sc))
             out = M.msm_best(tuple(pts), sc)
+            return g1_from_rows(self._read(g1_rows(*out)))[0]
+
+    def fixed_base_table(self, points):
+        """The window table of the fixed ``points`` on the backend's device,
+        for ``msm_fixed`` (ops/pairing_cuda.py::fixed_base_table); None
+        where there are none or more than ops/msm.py::use_fixed_table
+        allows (``msm`` serves those)."""
+        if not M.use_fixed_table(len(points)):
+            return None
+        return PC.fixed_base_table(self._to_dev(pack_g1(points)))
+
+    def msm_fixed(self, table, scalars):
+        """sum_j scalars[j] * points[j] of the points whose ``table`` this
+        backend built, as ``msm`` gives it."""
+        with span("bn254.backend.msm"):
+            with span("bn254.backend.pack"):
+                (sc,) = self._to_dev((pack_fr_columns([scalars], len(scalars), 1),))
+            out = PC.msm_fixed(table, sc)
             return g1_from_rows(self._read(g1_rows(*out)))[0]
 
     def g1_mul(self, point, scalar):

@@ -162,10 +162,11 @@ def team_unit(k: int) -> tuple:
 # One nvcc per compiled unit, all started together: (source, defines).
 # team_kernels.cu is built once per team kernel (K2-K5); pippenger.cu is K6,
 # built twice: its stages 1-5 and its combine (pippenger.cu's head comment);
-# plonk_kernels.cu is K7, the PlonK batch's lane pass.
+# plonk_kernels.cu is K7, the PlonK batch's lane pass; msm_fixed.cu the
+# fixed-base MSM of the Groth16 prepared input.
 UNITS = ([("kernels.cu", ())] + [team_unit(k) for k in (2, 3, 4, 5)]
          + [("pippenger.cu", (f"-DBN_PIP_COMBINE={k}",)) for k in (0, 1)]
-         + [("plonk_kernels.cu", ())])
+         + [("plonk_kernels.cu", ()), ("msm_fixed.cu", ())])
 OBJ_DIR = BUILD_DIR / "obj"
 
 
@@ -245,6 +246,7 @@ def bind_kernels(lib_path: Path) -> ctypes.CDLL:
         "bn_plonk_lanes_a": [_P, _N] + [_P] * 9 + [_N, _P],
         "bn_plonk_lanes_b": [_P, _N] + [_P] * 8 + [_N, _P],
         "bn_plonk_max_nb": [],
+        "bn_msm_fixed": [_P, _P, _I, _P, _P, _P, _N, _P],
         "bn_mont_mul_attrs": [_P],
         "bn_g2_on_curve_attrs": [_P],
         "bn_msm_affine_attrs": [_P],
@@ -256,6 +258,7 @@ def bind_kernels(lib_path: Path) -> ctypes.CDLL:
         "bn_msm_pippenger_combine_attrs": [_P],
         "bn_plonk_lanes_a_attrs": [_P],
         "bn_plonk_lanes_b_attrs": [_P],
+        "bn_msm_fixed_attrs": [_P],
     }
     for fn, args in sigs.items():
         getattr(lib, fn).argtypes = args
@@ -296,6 +299,7 @@ def load_host_check(rolled: bool = False) -> ctypes.CDLL:
     lib.host_g2_on_curve.argtypes = [_P, _P, _P, _P, _P, _N]
     lib.host_fq12_mul.argtypes = [_P, _P, _P, _N, _I]
     lib.host_msm_affine.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _N]
+    lib.host_msm_fixed.argtypes = [_P, _P, _I, _P, _P, _P, _N]
     lib.host_miller_mixed.argtypes = [_P] * 6 + [_I, _P, _P, _P, _N]
     lib.host_final_exp.argtypes = [_P, _P, _N]
     lib.host_miller_product.argtypes = [_P] * 4 + [_I, _P, _N]
@@ -317,7 +321,7 @@ def load_host_check(rolled: bool = False) -> ctypes.CDLL:
     lib.host_plonk_smem_bytes.restype = _N
     lib.host_plonk_max_nb.argtypes = []
     for fn in ("host_mont_mul", "host_fq_inv", "host_g2_on_curve", "host_fq12_mul",
-               "host_msm_affine", "host_miller_mixed", "host_final_exp",
+               "host_msm_affine", "host_msm_fixed", "host_miller_mixed", "host_final_exp",
                "host_miller_product", "host_msm_pippenger", "host_pip_sort",
                "host_pip_buckets", "host_pip_reduce", "host_pip_combine", "host_sha256",
                "host_sha256_lead", "host_fr_inv",

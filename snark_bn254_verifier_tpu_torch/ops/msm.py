@@ -1,4 +1,5 @@
-"""Large multi-scalar multiplication: the bucket (Pippenger) MSM, kernel K6.
+"""Large multi-scalar multiplication, the bucket (Pippenger) MSM, kernel K6;
+and the fixed-base MSM's window tables and plain twins (kernel msm_fixed).
 
 The counterpart of snark_bn254_verifier_tpu/ops/msm.py: ``_digits`` (:37
 there), ``msm_pippenger`` (:59), ``PIPPENGER_THRESHOLD`` (:165),
@@ -29,13 +30,25 @@ Per lane, with W = ceil(256 / c) windows of c bits:
      adding up k sets of window sums window by window (k > 1: the ranks of
      parallel/sharded.py::sharded_msm), then the affine form
      (``combine_plain``).
+
+The fixed-base MSM takes points that every lane shares, a VK's, through
+their window table: for point j, window w of ``FIXED_WINDOW`` = 8 bits
+and digit d = 1 .. 255 the affine entry d * 2^(8 w) * P_j, as (n, 32,
+255, 16) int32 words (``to_words`` of (x, y); all zero at infinity),
+built once per VK (ops/pairing_cuda.py::fixed_base_table; its plain twin
+``fixed_table_plain``), and only for at most ``FIXED_MAX_POINTS`` points
+(``use_fixed_table``). A lane's sum is then one addition of an entry per
+nonzero digit, with no doubling (``msm_fixed_plain``, the plain twin of
+kernel msm_fixed).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..oracle import bn254 as bn
 from . import curve as C
+from . import field as F
 from . import pairing_cuda as PC  # K6's wrapper calls back into this module's glue
 from .limbs import LIMB_BITS, NUM_LIMBS
 
@@ -108,22 +121,23 @@ def _halves(p):
 
 
 def to_words(p) -> torch.Tensor:
-    """A Jacobian point (X, Y, Z), each (16, *batch) 16-bit limbs, as the
-    kernels keep it: (*batch, 24) int32, coordinate i's word k at 8 i + k,
-    limbs 2k and 2k + 1 (lo | hi << 16; above 2^31 read as negative)."""
-    t = torch.stack([v.to(torch.int64) for v in p])  # (3, 16, *batch)
+    """A point's coordinates, a Jacobian (X, Y, Z) or an affine (x, y),
+    each (16, *batch) 16-bit limbs, as the kernels keep them: (*batch, 24)
+    or (*batch, 16) int32, coordinate i's word k at 8 i + k, limbs 2k and
+    2k + 1 (lo | hi << 16; above 2^31 read as negative)."""
+    t = torch.stack([v.to(torch.int64) for v in p])  # (coordinates, 16, *batch)
     w = t[:, 0::2] | (t[:, 1::2] << LIMB_BITS)
     w = torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
-    return w.reshape((3 * NUM_LIMBS // 2,) + w.shape[2:]).movedim(0, -1).contiguous()
+    return w.reshape((-1,) + w.shape[2:]).movedim(0, -1).contiguous()
 
 
 def from_words(w: torch.Tensor):
-    """``to_words``'s inverse: (*batch, 24) int32 -> (X, Y, Z), each
-    (16, *batch) int64 limbs."""
+    """``to_words``'s inverse: (*batch, 24) or (*batch, 16) int32 -> the
+    coordinates, each (16, *batch) int64 limbs."""
     v = (w.to(torch.int64) & 0xFFFFFFFF).movedim(-1, 0)
-    v = v.reshape((3, NUM_LIMBS // 2) + v.shape[1:])
+    v = v.reshape((-1, NUM_LIMBS // 2) + v.shape[1:])
     limbs = torch.stack([v & 0xFFFF, v >> LIMB_BITS], dim=2)
-    return tuple(limbs.reshape((3, NUM_LIMBS) + v.shape[2:]))
+    return tuple(limbs.reshape((-1, NUM_LIMBS) + v.shape[2:]))
 
 
 def window_sums_plain(points, scalars, c: int = 8) -> torch.Tensor:
@@ -229,3 +243,116 @@ def msm_best(points, scalars, c: int = 8):
     if use_pippenger(points[0].shape[0], points[0].shape[-1]):
         return PC.msm_pippenger(points, scalars, c)
     return PC.msm_affine(points, scalars)
+
+
+# Bits a window of the fixed-base tables (csrc/msm_fixed.cuh's
+# FX_WINDOW), fixed by measurement on an H100 against 4 and 6 bits
+# (PERF.md): the widest gives the fewest additions a lane, and its table,
+# 0.5 MB a point, still stays in L2.
+FIXED_WINDOW = 8
+FIXED_WINDOWS = windows(FIXED_WINDOW)  # 32 windows cover a 256-bit scalar
+# Entries a window: every digit, the top window's too, so any 256-bit
+# scalar reads inside the table.
+FIXED_DIGITS = (1 << FIXED_WINDOW) - 1
+ENTRY_WORDS = 16  # an affine table entry: x, then y, 8 words each
+FIXED_TEAM = 16  # threads a lane of kernel msm_fixed (csrc/msm_fixed.cuh's FX_TEAM)
+# Most points that get a table: 32 points' tables, 16.7 MB, a third of the
+# H100's 50 MB L2, built by about 0.6 s of K2 (PERF.md). Past it a VK's
+# MSM stays with msm_best, so a VK of hundreds of inputs holds no table of
+# hundreds of MB.
+FIXED_MAX_POINTS = 32
+
+
+def use_fixed_table(n: int) -> bool:
+    """Whether n fixed points (a VK's) get a window table and the
+    fixed-base MSM, or keep msm_best."""
+    return 1 <= n <= FIXED_MAX_POINTS
+
+
+def window_scalars() -> list:
+    """The scalar of each entry of a point's table, window-major:
+    d * 2^(8 w) mod r for window w and digit d = 1 .. 255."""
+    return [(d << (FIXED_WINDOW * w)) % bn.R for w in range(FIXED_WINDOWS)
+            for d in range(1, FIXED_DIGITS + 1)]
+
+
+def _batch_inverse(z: torch.Tensor) -> torch.Tensor:
+    """The Fq inverses of (16, N) nonzero Montgomery values by one
+    inversion (Montgomery's trick, a level of the product tree at a time):
+    the products of neighbours up to the root, its inverse, and back down,
+    each child's inverse its parent's times its sibling. A level of odd
+    length is padded with one. (A Fermat inversion a value, as
+    ``curve.to_affine`` takes, would cost the CPU a minute a table.)"""
+    levels = [z]
+    while levels[-1].shape[-1] > 1:
+        t = levels[-1]
+        if t.shape[-1] % 2:
+            levels[-1] = t = torch.cat([t, G1.one(t[:, :1])], dim=1)
+        levels.append(F.fq_mul(t[:, 0::2], t[:, 1::2]))
+    inv = F.fq_inv(levels[-1])
+    for t in reversed(levels[:-1]):
+        inv = inv[:, :t.shape[-1] // 2]
+        inv = torch.stack([F.fq_mul(inv, t[:, 1::2]), F.fq_mul(inv, t[:, 0::2])], dim=-1)
+        inv = inv.reshape(NUM_LIMBS, -1)
+    return inv[:, :z.shape[-1]]
+
+
+def fixed_table_plain(points) -> torch.Tensor:
+    """Plain twin of ops/pairing_cuda.py::fixed_base_table: the window
+    table of n fixed points (x (16, n), y (16, n), inf (n,), affine
+    Montgomery limbs), (n, 32, 255, 16) int32 words. The chain 2^i P of
+    every point by doublings; then, all windows at once, digits 2^L ..
+    2^(L+1) - 1 as 2^(8 w + L) P plus digits 1 .. 2^L - 1, a level of
+    additions for each bit L of a digit; then every entry affine by one
+    inversion."""
+    x, y, inf = points
+    n, c, nwin = x.shape[-1], FIXED_WINDOW, FIXED_WINDOWS
+    p = C.to_jacobian(G1, (x.to(torch.int64), y.to(torch.int64), inf.to(torch.bool)))
+    chain = [p]
+    for _ in range(c * nwin - 1):
+        chain.append(C.jacobian_double(G1, chain[-1]))
+    # 2^(8 w + L) P at [:, w, L], (16, W, 8, n)
+    pw = tuple(torch.stack([q[i] for q in chain], dim=1).view(NUM_LIMBS, nwin, c, n)
+               for i in range(3))
+    ent = tuple(t[:, :, :1] for t in pw)  # digit 1
+    for level in range(1, c):
+        base = tuple(t[:, :, level:level + 1] for t in pw)
+        more = C.jacobian_add(G1, tuple(b.expand_as(e) for b, e in zip(base, ent)), ent)
+        ent = tuple(torch.cat([e, b, m], dim=2) for e, b, m in zip(ent, base, more))
+    X, Y, Z = (t.reshape(NUM_LIMBS, -1) for t in ent)
+    at_inf = F.is_zero(Z)
+    zinv = _batch_inverse(F.select(at_inf, G1.one(Z), Z))
+    zinv2 = F.fq_sq(zinv)
+    ax, zinv3 = G1.mul_many([(X, zinv2), (zinv, zinv2)])
+    ay = F.fq_mul(Y, zinv3)
+    zero = torch.zeros_like(ax)
+    words = to_words((F.select(at_inf, zero, ax), F.select(at_inf, zero, ay)))
+    return words.view(nwin, FIXED_DIGITS, n, ENTRY_WORDS).permute(2, 0, 1, 3).contiguous()
+
+
+def msm_fixed_plain(table: torch.Tensor, scalars: torch.Tensor):
+    """Plain twin of kernel msm_fixed: sum_j scalars[j] * P_j per lane
+    from the points' window table (n, 32, 255, 16) and scalars (n, 16, B)
+    canonical Fr limbs, in affine form (x (16, B) int32, y, inf (B,)
+    bool). As the kernel's team sums them: the (point, window) pairs p =
+    32 j + w, thread r's sum the mixed adds of the entries of pairs r, r +
+    FIXED_TEAM, ... (the one each digit picks; infinity for digit 0),
+    then the threads' sums in a tree, then the affine form."""
+    n = table.shape[0]
+    pairs = n * FIXED_WINDOWS
+    d = _digits(scalars, FIXED_WINDOW).permute(2, 1, 0).reshape(scalars.shape[-1], pairs)
+    rows = torch.arange(pairs, device=d.device) * FIXED_DIGITS  # pair p's first entry
+    words = table.reshape(-1, ENTRY_WORDS)[rows + (d - 1).clamp(min=0)]  # (B, pairs, 16)
+    words = words.masked_fill((d == 0).unsqueeze(-1), 0)
+    steps = -(-pairs // FIXED_TEAM)
+    words = torch.cat([words, words.new_zeros((d.shape[0], steps * FIXED_TEAM - pairs,
+                                               ENTRY_WORDS))], dim=1)
+    ex, ey = from_words(words.view(d.shape[0], steps, FIXED_TEAM, ENTRY_WORDS))
+    acc = C.inf_point(G1, ex[:, :, 0])  # (16, B, FIXED_TEAM)
+    for t in range(steps):
+        x, y = ex[:, :, t], ey[:, :, t]
+        acc = C.jacobian_add_mixed(G1, acc, (x, y, F.is_zero(x) & F.is_zero(y)))
+    while acc[0].shape[-1] > 1:
+        acc = C.jacobian_add(G1, *_halves(acc))
+    ax, ay, ainf = C.to_affine(G1, tuple(t[..., 0] for t in acc))
+    return ax.to(torch.int32), ay.to(torch.int32), ainf

@@ -9,6 +9,9 @@ package's parallel/batch.py):
   g2_on_curve     K1 fused with the mask's Fq2 arithmetic, replaces
                   _mont_kernel (field_pallas.py:37) on the main path
   msm_affine      K2, replaces _msm_windowed_kernel + _jacobian_combine_kernel
+  msm_fixed       the same where the points are fixed (a VK's), from their
+                  window tables (``fixed_base_table``): the Groth16
+                  prepared input's MSM, in the batch and the single call
   miller_mixed    K3, replaces _miller_mixed_kernel
   final_exp       K4, replaces _fe_easy_expx_kernel + _fe_combine_kernel
   miller_product  K5, replaces _miller_kernel + _fq12_product_kernel
@@ -28,12 +31,14 @@ its kernel, checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on its tensors' device and that
 device's current stream, raises on a CUDA error and counts its launches
 in ``<wrapper>.launches``. No wrapper pads the batch: the kernels mask
-the ragged edge. g2_on_curve runs one thread per lane; K2-K5 run on a team of threads per lane, at the shapes
-csrc/msm.cuh (K2) and csrc/team.cuh (K3-K5) fix; K6 is six launches
-(csrc/pippenger.cuh): a digit pass and a counting sort, the bucket sums
-over fixed chunks of all rows' entries, a thread a chunk, the merge of
-buckets split between chunks, a block per (lane, window) for the window
-sums, and a team of four threads per lane for the combine, which
+the ragged edge. g2_on_curve runs one thread per lane; K2-K5 and
+msm_fixed run on a team of threads per lane, at the shapes csrc/msm.cuh
+(K2), csrc/team.cuh (K3-K5) and csrc/msm_fixed.cuh fix; K6 is six
+launches (csrc/pippenger.cuh): a digit pass and a counting sort, the
+bucket sums over fixed chunks of all rows' entries, a thread a chunk,
+the merge of buckets split between chunks, a block per (lane, window)
+for the window sums, and a team of four threads per lane for the
+combine, which
 ``msm_pippenger_combine`` also offers alone (for sharded_msm).
 """
 
@@ -48,9 +53,10 @@ from . import msm as M
 from . import pairing as PR
 from . import tower as T
 from ._build import load_kernels
+from ..utils.profiling import count
 from .field_cuda import expect as _expect, launch, mont_mul, on_cpu as _on_cpu
 from .lines import STEPS
-from .limbs import NUM_LIMBS
+from .limbs import FR, NUM_LIMBS
 from .plonk_cuda import plonk_lanes_a, plonk_lanes_b
 
 # Every kernel the port launches; tests/test_torch_kernel_registry.py
@@ -58,7 +64,7 @@ from .plonk_cuda import plonk_lanes_a, plonk_lanes_b
 # of chip_smoke.py, so no kernel ships without an on-card check.
 KERNEL_ENTRY_POINTS = ("mont_mul", "g2_on_curve", "msm_affine", "miller_mixed",
                        "final_exp", "miller_product", "msm_pippenger", "plonk_lanes_a",
-                       "plonk_lanes_b")
+                       "plonk_lanes_b", "msm_fixed")
 
 
 NF_MAX = 2  # fixed pairs whose line tables K3 stages in shared memory
@@ -132,6 +138,55 @@ def msm_affine(points, scalars):
     launch(ox.device, "bn_msm_affine", px.data_ptr(), py.data_ptr(), pinf8.data_ptr(),
            scalars.data_ptr(), n, ox.data_ptr(), oy.data_ptr(), oinf.data_ptr(), b)
     msm_affine.launches += 1
+    return ox, oy, oinf
+
+
+def fixed_base_table(points) -> torch.Tensor:
+    """The window table of n fixed points for ``msm_fixed``: points (x
+    (16, n), y (16, n), inf (n,)) affine Montgomery limbs (pack_g1's
+    layout); returns (n, 32, 255, 16) int32 words, entry d of window w of
+    point j the affine d * 2^(8 w) * P_j (ops/msm.py). Built once per VK:
+    on CUDA tensors every entry is a one-point MSM of K2, all in one
+    launch (counted in ``msm_affine.launches``); on CPU tensors the plain
+    twin ``ops/msm.py::fixed_table_plain``. The callers build one only
+    where ``ops/msm.py::use_fixed_table`` says."""
+    x, y, inf = points
+    if _on_cpu(x, y, inf):
+        return M.fixed_table_plain(points)
+    n = x.shape[-1]
+    _expect("x", x, (NUM_LIMBS, n))
+    _expect("y", y, (NUM_LIMBS, n))
+    _expect("inf", inf, (n,), torch.bool)
+    k = M.FIXED_WINDOWS * M.FIXED_DIGITS
+    sc = torch.as_tensor(FR.pack(M.window_scalars(), mont=False), device=x.device)
+    pts = tuple(t.repeat_interleave(k, dim=-1).unsqueeze(0) for t in (x, y, inf))
+    ex, ey, _ = msm_affine(pts, sc.repeat(1, n).unsqueeze(0))
+    return M.to_words((ex, ey)).view(n, M.FIXED_WINDOWS, M.FIXED_DIGITS, M.ENTRY_WORDS)
+
+
+def msm_fixed(table, scalars):
+    """Per-lane MSM sum_j scalars[j] * P_j in affine form over points P_j
+    that every lane shares, read from their window table.
+
+    table: (n, 32, 255, 16) int32 words (``fixed_base_table``); scalars:
+    (n, 16, B) canonical Fr limbs. Returns (x (16, B) int32, y (16, B)
+    int32, inf (B,) bool); infinity is (0, 0, True). Counts the lanes in
+    the program counter ``bn254.msm.fixed_lanes``, on either device."""
+    n, b = table.shape[0], scalars.shape[-1]
+    _expect("table", table, (n, M.FIXED_WINDOWS, M.FIXED_DIGITS, M.ENTRY_WORDS))
+    _expect("scalars", scalars, (n, NUM_LIMBS, b))
+    if n < 1:
+        raise ValueError("msm_fixed: a table of no points")
+    count("bn254.msm.fixed_lanes", b)
+    if _on_cpu(table, scalars):
+        return M.msm_fixed_plain(table, scalars)
+    table, scalars = table.contiguous(), scalars.contiguous()
+    ox, oy, oinf = _affine_out(b, scalars.device)
+    if b == 0:
+        return ox, oy, oinf
+    launch(ox.device, "bn_msm_fixed", table.data_ptr(), scalars.data_ptr(), n, ox.data_ptr(),
+           oy.data_ptr(), oinf.data_ptr(), b)
+    msm_fixed.launches += 1
     return ox, oy, oinf
 
 
@@ -339,11 +394,12 @@ miller_mixed.launches = 0
 final_exp.launches = 0
 miller_product.launches = 0
 msm_pippenger.launches = 0
+msm_fixed.launches = 0
 
 __all__ = ["KERNEL_ENTRY_POINTS", "mont_mul", "g2_on_curve", "msm_affine", "miller_mixed",
            "final_exp", "miller_product", "msm_pippenger", "msm_pippenger_windows",
-           "msm_pippenger_combine", "plonk_lanes_a", "plonk_lanes_b", "launch_counts",
-           "reset_launch_counts"]
+           "msm_pippenger_combine", "plonk_lanes_a", "plonk_lanes_b", "fixed_base_table",
+           "msm_fixed", "launch_counts", "reset_launch_counts"]
 
 
 def pairing(p_affine, q_affine):

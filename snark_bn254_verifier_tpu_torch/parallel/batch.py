@@ -13,7 +13,10 @@ Groth16, per batch:
      once per VK on the oracle;
   2. device: the G2 on-curve mask of the proofs' B points, kernel K1 in
      its fused form (g2_on_curve);
-  3. the prepared input 1*k0 + sum in_i * k_{i+1}, kernel K2;
+  3. the prepared input 1*k0 + sum in_i * k_{i+1}, kernel msm_fixed, over
+     the window table of k0..kn that the constructor builds once
+     (ops/pairing_cuda.py::fixed_base_table), where the VK has at most
+     ops/msm.py::FIXED_MAX_POINTS points; past that through msm_best;
   4. the mixed Miller product of e(A, B), e(L, gamma), e(C, -delta),
      kernel K3, then the final exponentiation, kernel K4;
   5. the Gt compare against e(alpha, beta), ANDed with the validity mask.
@@ -45,12 +48,13 @@ the card too):
 
 PlonK proofs hold only G1 points, so there is no G2 mask. A bad proof
 masks its lane False instead of raising. On a CUDA device every stage
-goes through its kernel; a CPU device runs the plain twins. Every MSM
-goes through ops/msm.py::msm_best, as the JAX package's _msm_affine
+goes through its kernel; a CPU device runs the plain twins. Every PlonK
+MSM goes through ops/msm.py::msm_best, as the JAX package's _msm_affine
 (batch.py:177-197 there): Pippenger (K6) where ops/msm.py::use_pippenger
-says (16 points or more, at most 4 lanes a point), which only a Groth16 VK
-with 15 or more public inputs reaches, and then only in small batches;
-else K2.
+says (16 points or more, at most 4 lanes a point), else K2. The Groth16
+MSM's points are the VK's, the same in every lane, so it takes the
+fixed-base kernel at any batch size, on a VK of at most FIXED_MAX_POINTS
+points; a larger VK's goes through msm_best too.
 
 ``verify_batch_async`` (batch.py:280-325 and :478-627 there) returns the
 device bool tensor without waiting for the card, so the caller can parse
@@ -415,7 +419,15 @@ class Groth16BatchVerifier(_Flights):
         self.n_inputs = len(self.vk.k) - 1
         self._tables = None
         self._alpha_beta = None
-        self._k_points = _fixed_points(self.vk.k, self.device)
+        # The VK's points: their window table for msm_fixed while their
+        # count allows one (ops/msm.py::use_fixed_table), else the points
+        # for msm_best.
+        self._k_table = self._k_points = None
+        if M.use_fixed_table(len(self.vk.k)):
+            self._k_table = PC.fixed_base_table(
+                tuple(torch.as_tensor(a, device=self.device) for a in pack_g1(self.vk.k)))
+        else:
+            self._k_points = _fixed_points(self.vk.k, self.device)
         self.last_stats: Optional[RunStats] = None
         self._init_flights()
 
@@ -509,7 +521,6 @@ class Groth16BatchVerifier(_Flights):
         with stream:
             with span("bn254.batch.upload"):
                 stages.begin()
-                k_points = tuple(v.expand(v.shape[:-1] + (b,)) for v in self._k_points)
                 sc, valid, *flat = self._upload(slot, sc, valid, *ar, *bs, *krs)
             with span("bn254.batch.launch"):
                 ar, bs, krs = tuple(flat[:3]), tuple(flat[3:6]), tuple(flat[6:])
@@ -519,7 +530,11 @@ class Groth16BatchVerifier(_Flights):
                 if parser == "native":  # the Python parser checked the curve itself
                     valid = PC.g2_on_curve(bs, valid)
                 stages.device("g2_mask_ms")
-                prepared = M.msm_best(k_points, sc)
+                if self._k_table is not None:
+                    prepared = PC.msm_fixed(self._k_table, sc)
+                else:
+                    prepared = M.msm_best(
+                        tuple(v.expand(v.shape[:-1] + (b,)) for v in self._k_points), sc)
                 stages.device("msm_ms")
                 f = PC.miller_mixed(ar, bs, (prepared, krs), lines, tails)
                 stages.device("miller_ms")

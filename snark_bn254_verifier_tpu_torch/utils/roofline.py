@@ -189,6 +189,39 @@ def bound(fp_muls: int, nbytes: int, sha256_compressions: int = 0,
     return out
 
 
+def _g1_op_products() -> dict:
+    """Montgomery products of each G1 operation on its plain formula
+    (``count_fp_muls``, at batch one): a mixed add, a full add, a doubling
+    and the affine conversion."""
+    import torch
+
+    from ..models.packing import pack_g1
+    from ..ops import curve as C
+    from ..oracle import bn254 as bn
+
+    g1 = C.G1_OPS
+    x, y, inf = (torch.as_tensor(a) for a in pack_g1([bn.G1_GEN]))
+    x, y = x.to(torch.int64), y.to(torch.int64)
+    q = C.jacobian_double(g1, C.to_jacobian(g1, (x, y, inf)))  # 2G and 4G, Z != 1
+    r = C.jacobian_double(g1, q)
+    return {"madd": count_fp_muls(lambda: C.jacobian_add_mixed(g1, q, (x, y, inf))),
+            "add": count_fp_muls(lambda: C.jacobian_add(g1, q, r)),
+            "dbl": count_fp_muls(lambda: C.jacobian_double(g1, q)),
+            "affine": count_fp_muls(lambda: C.to_affine(g1, q))}
+
+
+def _nonzero_digits(inf, scalars, c: int) -> int:
+    """Nonzero c-bit digits of the scalars of finite points: inf (n, B)
+    or (n,) masks the points, scalars (n, 16, B)."""
+    import torch
+
+    from ..ops import msm as M
+
+    mask = inf.to(torch.bool)
+    mask = mask.unsqueeze(0) if mask.dim() == 2 else mask.view(1, -1, 1)
+    return int((M._digits(scalars, c).masked_fill(mask, 0) != 0).sum().item())
+
+
 def pippenger_work(points, scalars, c: int) -> int:
     """Montgomery products the bucket MSM (kernel K6) needs on these
     inputs, summed over lanes: a mixed add per finite point of nonzero
@@ -198,27 +231,44 @@ def pippenger_work(points, scalars, c: int) -> int:
     (``count_fp_muls``). The merges of buckets split between the kernel's
     chunks and its teams' repeated work are not counted: the bound counts
     what the method needs, not what one design computes."""
+    from ..ops import msm as M
+
+    ops = _g1_op_products()
+    w, b = M.windows(c), scalars.shape[-1]
+    per_lane = (w * 2 * ((1 << c) - 1) * ops["add"] + (w - 1) * (c * ops["dbl"] + ops["add"])
+                + ops["affine"])
+    return _nonzero_digits(points[2], scalars, c) * ops["madd"] + b * per_lane
+
+
+def fixed_msm_work(inf, scalars) -> int:
+    """Montgomery products the fixed-base MSM (kernel msm_fixed) needs on
+    these inputs, summed over lanes: a mixed add of a table entry per
+    nonzero 8-bit digit of a finite point (inf (n,) marks the points at
+    infinity; scalars (n, 16, B)) and the affine conversion. The table is
+    the VK's set-up, and the tree that joins the team's sums one design's:
+    neither is counted."""
+    from ..ops import msm as M
+
+    ops = _g1_op_products()
+    return (_nonzero_digits(inf, scalars, M.FIXED_WINDOW) * ops["madd"]
+            + scalars.shape[-1] * ops["affine"])
+
+
+def fixed_msm_bytes(inf, scalars) -> int:
+    """Bytes the fixed-base MSM has to move on these inputs: each table
+    entry that some lane's nonzero digit of a finite point picks, read
+    once (64 B; the entries no digit picks are never read), the scalars
+    (n, 16, B) int32 limbs and the outputs (two (16, B) int32 coordinates
+    and a byte a lane)."""
     import torch
 
-    from ..models.packing import pack_g1
-    from ..ops import curve as C
     from ..ops import msm as M
-    from ..oracle import bn254 as bn
 
-    g1 = C.G1_OPS
-    x, y, inf = (torch.as_tensor(a) for a in pack_g1([bn.G1_GEN]))
-    x, y = x.to(torch.int64), y.to(torch.int64)
-    q = C.jacobian_double(g1, C.to_jacobian(g1, (x, y, inf)))  # 2G and 4G, Z != 1
-    r = C.jacobian_double(g1, q)
-    madd = count_fp_muls(lambda: C.jacobian_add_mixed(g1, q, (x, y, inf)))
-    add = count_fp_muls(lambda: C.jacobian_add(g1, q, r))
-    dbl = count_fp_muls(lambda: C.jacobian_double(g1, q))
-    affine = count_fp_muls(lambda: C.to_affine(g1, q))
-    digits = M._digits(scalars, c).masked_fill(points[2].to(torch.bool).unsqueeze(0), 0)
-    nonzero = int((digits != 0).sum().item())
-    w, b = M.windows(c), scalars.shape[-1]
-    per_lane = w * 2 * ((1 << c) - 1) * add + (w - 1) * (c * dbl + add) + affine
-    return nonzero * madd + b * per_lane
+    d = M._digits(scalars, M.FIXED_WINDOW).masked_fill(inf.to(torch.bool).view(1, -1, 1), 0)
+    w, n, b = d.shape  # (windows, points, lanes)
+    pair = torch.arange(n).view(1, -1, 1) * w + torch.arange(w).view(-1, 1, 1)
+    entries = torch.unique((pair * (1 << M.FIXED_WINDOW) + d)[d != 0]).numel()
+    return entries * 4 * M.ENTRY_WORDS + 4 * scalars.numel() + b * (2 * 4 * 16 + 1)
 
 
 def _count(fn) -> int:
@@ -401,7 +451,8 @@ def lane_mults(verifier_cls, vk: bytes, proof: bytes, public_inputs) -> int:
     verifying it once on the plain twins, the per-lane work of the kernels
     it runs (for PlonK, K7's lane pass too: its Fr products and the
     proof's on-curve checks). Its set-up (line tables, e(alpha, beta),
-    the VK's transcript prefix) is not counted."""
+    the fixed-base window table, the VK's transcript prefix) is not
+    counted."""
     ver = verifier_cls(vk, device="cpu")
     return count_fp_muls(lambda: ver.verify_batch([proof], [public_inputs]))
 

@@ -3,7 +3,7 @@ the host C++ compiler into a test-only library (csrc/host_check.cc) and run
 against the oracle and the plain twins, the team kernels with one host
 thread per team thread. Covers the 16<->32-bit limb conversion, the 32-bit
 CIOS, the fused K1's G2 on-curve mask, the teams' Fq12 product, K2's MSM
-team, final_exp(miller_mixed), K5's Miller-product team, K6's six
+team, the fixed-base MSM's team, final_exp(miller_mixed), K5's Miller-product team, K6's six
 stages (the counting sort, the chunked bucket sums and their merge, the
 window sums, the combine of k sets), and K7's blocks stage by stage with
 its divsteps inverse, without a card, each kernel's code with the form of
@@ -383,6 +383,35 @@ def test_msm_affine_team_edge_lanes_match_oracle(lib_rolled, n):
         assert got == want, lane
         if want is None:
             assert xs[lane] == ys[lane] == 0
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 5])
+def test_msm_fixed_team_equals_plain_twin_and_oracle(lib_rolled, n):
+    """The fixed-base MSM's team (msm_fixed.cuh) over 9 lanes in blocks of
+    FX_LPB = 4 (the last ragged), with the edge lanes of
+    fixtures/msm_lanes.py::fixed_base_lanes and a point at infinity;
+    n = 2 and 3 leave some of the 16 threads without a pair in the last
+    step, 5 gives every thread ten; limb-equal to the plain twin, and each
+    lane to the oracle."""
+    from snark_bn254_verifier_tpu_torch.fixtures.msm_lanes import fixed_base_lanes
+    from snark_bn254_verifier_tpu_torch.models.packing import unpack_g1
+    from snark_bn254_verifier_tpu_torch.ops import msm as M
+
+    b = 9
+    pts, scs, logs = fixed_base_lanes(n, b, 100 + n)
+    table = M.fixed_table_plain(tuple(torch.as_tensor(a) for a in pack_g1(pts)))
+    sc = c_tensor(np.stack([FR.pack(s, mont=False) for s in scs]))
+    ox = torch.empty((16, b), dtype=torch.int32)
+    oy, oinf = torch.empty_like(ox), torch.empty(b, dtype=torch.uint8)
+    assert lib_rolled.host_msm_fixed(ptr(table), ptr(sc), n, ptr(ox), ptr(oy), ptr(oinf),
+                                     b) == 0
+    want = M.msm_fixed_plain(table, sc)
+    assert torch.equal(ox, want[0]) and torch.equal(oy, want[1])
+    assert torch.equal(oinf.bool(), want[2])
+    got = unpack_g1(ox, oy, oinf.bool())
+    for lane in range(b):
+        k = sum(s[lane] * log for s, log in zip(scs, logs)) % bn.R
+        assert got[lane] == (bn.g1_mul(bn.G1_GEN, k) if k else None), lane
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 5])

@@ -51,9 +51,13 @@ def tampered_claimed_value(vec):
 
 def test_groth16_good_proof_verifies(g16):
     assert Groth16Verifier.verify(g16.proof, g16.vk, g16.public_inputs, device="cpu") is True
-    # the cached e(alpha, beta) came from K5 + K4's twins
+    # the cached e(alpha, beta) came from K5 + K4's twins; the window
+    # table of k[1:] (2 points, 32 windows of 255 entries) from the table's
     vk, prepared = Groth16Verifier._cache[hashlib.sha256(g16.vk).digest()]
     assert prepared.alpha_beta == bn.pairing(vk.alpha_g1, vk.beta_g2)
+    from snark_bn254_verifier_tpu_torch import TorchBackend
+
+    assert prepared.tables[TorchBackend.instance("cpu")].shape == (2, 32, 255, 16)
 
 
 def test_groth16_wrong_input_value_is_false(g16):

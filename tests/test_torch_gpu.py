@@ -1,6 +1,7 @@
 """The port's CUDA kernels on a card: each kernel against its plain PyTorch
 twin on the same CUDA tensors (exact), the batched slice on CUDA (also
-pipelined through verify_batch_async), the large MSM through
+pipelined through verify_batch_async, and at 2048 lanes with every
+fault kind), the large MSM through
 TorchBackend.msm and one single-proof facade call on CUDA. Marked
 ``gpu``; every test skips where no CUDA device is present. On a machine
 with one, run ``python -m pytest --noconftest tests/test_torch_gpu.py -m gpu``
@@ -185,7 +186,7 @@ def test_slice_on_cuda(cuda):
     ok = Groth16BatchVerifier(vec.vk, device="cuda").verify_batch(proofs, inputs)
     assert ok.tolist() == [i != 3 for i in range(B)]
     launches = PC.launch_counts()
-    assert all(launches[k] > 0 for k in ("msm_affine", "miller_mixed", "final_exp"))
+    assert all(launches[k] > 0 for k in ("msm_fixed", "miller_mixed", "final_exp"))
     assert launches["g2_on_curve"] == 1 and launches["mont_mul"] == 0
 
 
@@ -203,7 +204,8 @@ def test_plonk_batch_on_cuda(cuda):
     assert ok.tolist() == expected
     assert PC.launch_counts() == {"mont_mul": 0, "g2_on_curve": 0, "msm_affine": 3,
                                   "miller_mixed": 1, "final_exp": 1, "miller_product": 0,
-                                  "msm_pippenger": 0, "plonk_lanes_a": 1, "plonk_lanes_b": 1}
+                                  "msm_pippenger": 0, "plonk_lanes_a": 1, "plonk_lanes_b": 1,
+                                  "msm_fixed": 0}
     cpu = PlonkBatchVerifier(vec.vk, device="cpu").verify_batch(proofs[:8], inputs[:8])
     assert cpu.tolist() == ok[:8].tolist()
 
@@ -230,7 +232,7 @@ def test_groth16_facade_on_cuda(cuda):
     PC.reset_launch_counts()
     assert Groth16Verifier.verify(vec.proof, vec.vk, vec.public_inputs, device="cuda") is True
     launches = PC.launch_counts()
-    assert all(launches[k] > 0 for k in ("msm_affine", "miller_product", "final_exp"))
+    assert all(launches[k] > 0 for k in ("msm_fixed", "miller_product", "final_exp"))
 
 
 @pytest.mark.parametrize("n,c,b,chunk", [(70, 8, 3, 32), (5, 4, 1, 32), (300, 8, 2, 32),
@@ -296,7 +298,7 @@ def test_torch_backend_msm_large_on_cuda(cuda):
 def test_verify_batch_async_pipelined_on_cuda(cuda):
     """Groth16 and PlonK batches, two in flight on their streams: the exact
     bools on every batch, and per batch one launch each of g2_on_curve,
-    msm_affine, miller_mixed and final_exp (Groth16), three msm_affine, one
+    msm_fixed, miller_mixed and final_exp (Groth16), three msm_affine, one
     miller_mixed, one final_exp and one each of K7a and K7b (PlonK)."""
     from snark_bn254_verifier_tpu_torch.fixtures.groth16_lanes import groth16_batch_lanes
 
@@ -311,9 +313,10 @@ def test_verify_batch_async_pipelined_on_cuda(cuda):
     for ok in out:
         assert ok.cpu().tolist() == expected
     n = 4
-    assert PC.launch_counts() == {"mont_mul": 0, "g2_on_curve": n, "msm_affine": n,
+    assert PC.launch_counts() == {"mont_mul": 0, "g2_on_curve": n, "msm_affine": 0,
                                   "miller_mixed": n, "final_exp": n, "miller_product": 0,
-                                  "msm_pippenger": 0, "plonk_lanes_a": 0, "plonk_lanes_b": 0}
+                                  "msm_pippenger": 0, "plonk_lanes_a": 0, "plonk_lanes_b": 0,
+                                  "msm_fixed": n}
 
     bad = {3 + 2 * k: kind for k, kind in enumerate(KINDS)}
     vec, proofs, inputs, expected = plonk_batch_lanes(B, bad)
@@ -326,7 +329,8 @@ def test_verify_batch_async_pipelined_on_cuda(cuda):
     assert second.cpu().tolist() == expected
     assert PC.launch_counts() == {"mont_mul": 0, "g2_on_curve": 0, "msm_affine": 9,
                                   "miller_mixed": 3, "final_exp": 3, "miller_product": 0,
-                                  "msm_pippenger": 0, "plonk_lanes_a": 3, "plonk_lanes_b": 3}
+                                  "msm_pippenger": 0, "plonk_lanes_a": 3, "plonk_lanes_b": 3,
+                                  "msm_fixed": 0}
 
 
 def plonk_lanes_kernels_against_twins(cuda, b, n_bsb22=1):
@@ -411,3 +415,65 @@ def test_plonk_lanes_refuse_a_vk_past_the_shared_memory(cuda):
     with pytest.raises(ValueError, match="BSB22 commitments"):
         PC.plonk_lanes_b(raw, ok, fr, fr, (fr, fr, ok), lvk)
     assert (PC.plonk_lanes_a.launches, PC.plonk_lanes_b.launches) == before
+
+
+@pytest.fixture(scope="module")
+def fixed_table(cuda):
+    """Four fixed points (the Groth16 batch's k0..k3 shape, the last at
+    infinity) and their window table built on the card by K2, checked
+    equal to the plain twin's."""
+    from snark_bn254_verifier_tpu_torch.fixtures.msm_lanes import fixed_base_lanes
+
+    pts, _, _ = fixed_base_lanes(4, 1, 110)
+    points = on(cuda, pack_g1(pts))
+    table = PC.fixed_base_table(points)
+    assert torch.equal(table.cpu(), M.fixed_table_plain(tuple(t.cpu() for t in points)))
+    return pts, table
+
+
+@pytest.mark.parametrize("b", [1, 7, 2048, 2049])
+def test_msm_fixed_kernel_equals_plain(cuda, fixed_table, b):
+    """The fixed-base kernel (4 lanes a block: 7 and 2049 leave the last
+    block ragged) exact against its plain twin on the same CUDA tensors
+    and against K2 on the points broadcast to the lanes, the edge lanes of
+    fixtures/msm_lanes.py::fixed_base_lanes first; one launch. Through
+    the C entry on buffers with room past the last lane, nothing is
+    stored there."""
+    from snark_bn254_verifier_tpu_torch.fixtures.msm_lanes import fixed_base_lanes
+
+    pts, table = fixed_table
+    _, scs, _ = fixed_base_lanes(4, max(b, 8), 111 + b)
+    sc = on(cuda, (np.stack([FR.pack(s[:b], mont=False) for s in scs]),))[0]
+    before = PC.msm_fixed.launches
+    got = PC.msm_fixed(table, sc)
+    assert PC.msm_fixed.launches == before + 1
+    assert all(torch.equal(g, w) for g, w in zip(got, M.msm_fixed_plain(table, sc)))
+    lanes = on(cuda, pair_major(pack_g1, [[p] * b for p in pts]))
+    assert all(torch.equal(g, w) for g, w in zip(got, PC.msm_affine(lanes, sc)))
+    ox = torch.full((16 * b + 64,), -7, dtype=torch.int32, device=cuda)
+    oy = torch.full_like(ox, -7)
+    oinf = torch.full((b + 64,), 7, dtype=torch.uint8, device=cuda)
+    PC.launch(cuda, "bn_msm_fixed", table.data_ptr(), sc.data_ptr(), 4, ox.data_ptr(),
+              oy.data_ptr(), oinf.data_ptr(), b)
+    torch.cuda.synchronize()
+    assert torch.equal(ox[:16 * b].view(16, b), got[0])
+    assert torch.equal(oinf[:b].bool(), got[2])
+    assert (ox[16 * b:] == -7).all() and (oy[16 * b:] == -7).all() and (oinf[b:] == 7).all()
+
+
+def test_groth16_batch_at_2048_with_every_fault_kind(cuda):
+    """The Groth16 batch verifier at 2048 lanes on a 4-point VK (3 inputs,
+    the SP1 wrapper's count) with a lane of each of the six fault kinds of
+    fixtures/groth16_lanes.py::KINDS: every verdict as expected, and the
+    batch's MSM one msm_fixed launch, no K2."""
+    from snark_bn254_verifier_tpu_torch.fixtures.groth16_lanes import KINDS, groth16_batch_lanes
+
+    vec, proofs, inputs, expected = groth16_batch_lanes(2048, num_inputs=3)
+    assert len(set(KINDS.values())) == 6 and expected.count(False) == 6
+    ver = Groth16BatchVerifier(vec.vk, device="cuda")
+    assert ver._k_table.shape[0] == 4
+    PC.reset_launch_counts()
+    ok = ver.verify_batch(proofs, inputs)
+    assert ok.tolist() == expected
+    launches = PC.launch_counts()
+    assert launches["msm_fixed"] == 1 and launches["msm_affine"] == 0

@@ -61,3 +61,20 @@ def test_chip_smoke_paths_launch_every_kernel():
     assert set(smoke.LARGE_MSM_KERNELS) == {"msm_pippenger"}
     assert set(smoke.PLONK_BATCH_KERNELS) == {"msm_affine", "miller_mixed", "final_exp",
                                               "plonk_lanes_a", "plonk_lanes_b"}
+    # the Groth16 prepared input is fixed-base in the batch and the single
+    # call; K2 stays for the PlonK paths
+    assert set(smoke.SLICE_KERNELS) == {"g2_on_curve", "msm_fixed", "miller_mixed", "final_exp"}
+    assert {"msm_fixed", "msm_affine"} <= set(smoke.SINGLE_KERNELS)
+
+
+def test_msm_fixed_is_a_unit_of_its_own():
+    """The fixed-base MSM builds from msm_fixed.cu, beside K2's unit
+    (team_kernels.cu at -DBN_TEAM_KERNEL=2), which neither names it nor
+    includes its header."""
+    from snark_bn254_verifier_tpu_torch.ops import _build
+
+    csrc = REPO / "snark_bn254_verifier_tpu_torch" / "csrc"
+    assert ("msm_fixed.cu", ()) in _build.UNITS and _build.team_unit(2) in _build.UNITS
+    for name in ("team_kernels.cu", "msm.cuh"):
+        assert "msm_fixed" not in (csrc / name).read_text()
+    assert '#include "msm_fixed.cuh"' in (csrc / "msm_fixed.cu").read_text()

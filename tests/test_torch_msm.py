@@ -3,7 +3,11 @@ kernel K6, against the JAX package's oracle (oracle/bn254.py::g1_msm,
 which imports no JAX), the port's oracle and K2's plain twin, over lanes
 with zero scalars, points at infinity, one point repeated (P + P inside a
 bucket) and all-zero scalars; ``_digits`` against the JAX package's;
-msm_best's switch by points and lanes; TorchBackend.msm through it.
+msm_best's switch by points and lanes; TorchBackend.msm through it. The
+fixed-base MSM: its window table's plain twin against the oracle, the
+plain twin of kernel msm_fixed against K2's and the oracle on the edge
+lanes of fixtures/msm_lanes.py::fixed_base_lanes, and the Groth16 facade
+on it against the oracle backend.
 
 Slow: the JAX package's msm_pippenger_jit on the same points."""
 
@@ -15,11 +19,12 @@ import torch
 
 from snark_bn254_verifier_tpu.oracle import bn254 as jax_bn
 from snark_bn254_verifier_tpu_torch import TorchBackend
+from snark_bn254_verifier_tpu_torch.fixtures.msm_lanes import FIXED_BASE_EDGES, fixed_base_lanes
 from snark_bn254_verifier_tpu_torch.models.packing import pack_g1, pair_major, unpack_g1
 from snark_bn254_verifier_tpu_torch.ops import curve as C
 from snark_bn254_verifier_tpu_torch.ops import msm as M
 from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
-from snark_bn254_verifier_tpu_torch.ops.limbs import FR
+from snark_bn254_verifier_tpu_torch.ops.limbs import FQ, FR
 from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
 
 
@@ -159,6 +164,116 @@ def test_torch_backend_msm_runs_pippenger_from_64_points(monkeypatch):
     assert TorchBackend("cpu").msm(pts, scs) == oracle_sums(bn, [[p] for p in pts],
                                                             [[s] for s in scs], 1)[0]
     assert seen == [80]
+
+
+FIXED_LANES = list(FIXED_BASE_EDGES) + ["random", "random_2"]  # lane by lane
+FIXED_B = len(FIXED_LANES)
+
+
+@pytest.fixture(scope="module")
+def fixed():
+    """Three fixed points (the last at infinity), their window table by
+    the plain twin, the lanes' scalars, the fixed-base twin's sums and
+    K2's twin's on the same lanes."""
+    pts, scs, logs = fixed_base_lanes(3, FIXED_B, 90)
+    table = M.fixed_table_plain(tuple(torch.as_tensor(a) for a in pack_g1(pts)))
+    scalars = torch.as_tensor(np.stack([FR.pack(row, mont=False) for row in scs]))
+    lanes = tuple(torch.as_tensor(a) for a in pair_major(pack_g1, [[p] * FIXED_B for p in pts]))
+    return {"pts": pts, "scs": scs, "logs": logs, "table": table,
+            "got": M.msm_fixed_plain(table, scalars), "k2": C.msm_affine(lanes, scalars),
+            "jax": oracle_sums(jax_bn, [[p] * FIXED_B for p in pts], scs, FIXED_B)}
+
+
+@pytest.mark.parametrize("w,d", [(0, 1), (0, 255), (1, 2), (7, 128), (30, 77), (31, 1),
+                                 (31, 63), (31, 255)])
+def test_fixed_table_entries_equal_the_oracle(fixed, w, d):
+    """Entry d of window w of each point is d * 2^(8 w) * P, affine, in
+    32-bit words (x, then y), by both oracles; the point at infinity's
+    entries are zero."""
+    table = fixed["table"]
+    assert table.shape == (3, 32, 255, M.ENTRY_WORDS) and M.FIXED_WINDOW == 8
+    x, y = M.from_words(table[:, w, d - 1])
+    for j, p in enumerate(fixed["pts"]):
+        want = bn.g1_mul(p, d << (8 * w)) if p is not None else None
+        assert want == (jax_bn.g1_mul(p, d << (8 * w)) if p is not None else None)
+        got = (FQ.unpack(x[:, j].numpy())[0], FQ.unpack(y[:, j].numpy())[0])
+        assert got == (want if want is not None else (0, 0)), j
+
+
+@pytest.mark.parametrize("lane", range(FIXED_B), ids=FIXED_LANES)
+def test_msm_fixed_twin_equals_k2_twin_and_oracle(fixed, lane):
+    """The fixed-base twin on one lane of each edge: limb-equal to K2's
+    twin on the same points and scalars, and equal to the MSM of both
+    oracles and to (sum_j s_j k_j) G."""
+    got, k2 = fixed["got"], fixed["k2"]
+    assert all(torch.equal(g[..., lane], w[..., lane]) for g, w in zip(got, k2))
+    want = bn.g1_mul(bn.G1_GEN, sum(s[lane] * k for s, k in zip(fixed["scs"], fixed["logs"]))
+                     % bn.R)
+    assert unpack_g1(*(t[..., lane:lane + 1] for t in got))[0] == want == fixed["jax"][lane]
+    assert want == bn.g1_msm(fixed["pts"][:2], [s[lane] for s in fixed["scs"][:2]])
+    assert (want is None) == (FIXED_LANES[lane] in ("zero", "cancels"))
+
+
+def test_msm_fixed_on_cpu_tensors_takes_the_twin_and_counts_no_launch(fixed):
+    scalars = torch.as_tensor(np.stack([FR.pack(row, mont=False) for row in fixed["scs"]]))
+    before = PC.msm_fixed.launches
+    got = PC.msm_fixed(fixed["table"], scalars)
+    assert PC.msm_fixed.launches == before
+    assert all(torch.equal(g, w) for g, w in zip(got, fixed["got"]))
+    with pytest.raises(ValueError):
+        PC.msm_fixed(fixed["table"][:, :, :100], scalars)
+
+
+@pytest.mark.parametrize("n", [0, M.FIXED_MAX_POINTS + 1, 200])
+def test_no_window_table_outside_the_size_rule(n):
+    """No points, or more than FIXED_MAX_POINTS (a VK of many inputs,
+    whose tables would pass a third of the L2), get no table: the
+    backend's MSM serves them. At most FIXED_MAX_POINTS do."""
+    assert not M.use_fixed_table(n) and M.use_fixed_table(M.FIXED_MAX_POINTS)
+    assert TorchBackend.instance("cpu").fixed_base_table([bn.G1_GEN] * n) is None
+
+
+@pytest.fixture(scope="module")
+def g16_prepared():
+    """A Groth16 vector and its VK prepared on the torch CPU backend (with
+    the window table of k[1:]) and on the oracle backend (with none)."""
+    from snark_bn254_verifier_tpu_torch.fixtures.gen import gen_groth16_vector
+    from snark_bn254_verifier_tpu_torch.models.backend import get_backend
+    from snark_bn254_verifier_tpu_torch.models.groth16 import PreparedVerifyingKey
+    from snark_bn254_verifier_tpu_torch.utils import serialization as ser
+
+    vec = gen_groth16_vector(3)
+    vk = ser.load_groth16_verifying_key_from_bytes(vec.vk)
+    torch_cpu, oracle = TorchBackend.instance("cpu"), get_backend("oracle")
+    return vec, vk, {b: PreparedVerifyingKey.from_vk(vk, b) for b in (torch_cpu, oracle)}
+
+
+@pytest.mark.parametrize("case", ["good", "wrong input value", "wrong input count"])
+def test_groth16_facade_on_the_table_gives_the_oracle_backends_outcome(g16_prepared, case):
+    """verify_groth16 on TorchBackend("cpu") with its prepared VK, whose
+    prepared input goes through the fixed-base MSM, against the same
+    protocol code on the oracle backend (plain MSM): the same verdict or
+    the same error."""
+    from snark_bn254_verifier_tpu_torch.models.groth16 import verify_groth16
+    from snark_bn254_verifier_tpu_torch.utils import errors
+    from snark_bn254_verifier_tpu_torch.utils import serialization as ser
+
+    vec, vk, prepared = g16_prepared
+    ins = list(vec.public_inputs)
+    ins = {"good": ins, "wrong input value": [ins[0] + 1] + ins[1:],
+           "wrong input count": ins[:-1]}[case]
+    proof = ser.load_groth16_proof_from_bytes(vec.proof)
+    outcomes = {}
+    for backend, prep in prepared.items():
+        assert (prep.k_table(backend) is None) == (backend.name == "oracle")
+        try:
+            outcomes[backend.name] = verify_groth16(vk, proof, ins, backend=backend,
+                                                    prepared=prep)
+        except errors.VerifierError as e:
+            outcomes[backend.name] = type(e).__name__
+    assert outcomes["torch"] == outcomes["oracle"] == {
+        "good": True, "wrong input value": False,
+        "wrong input count": "PrepareInputsFailedError"}[case]
 
 
 @pytest.mark.slow  # the JAX package's Pippenger compiles for minutes on XLA:CPU

@@ -3,7 +3,8 @@ roofline.py) against the JAX package's (utils/roofline.py): the leaf costs
 counted on the port's plain twins equal the JAX ones counted on its XLA
 ops, key for key; the per-proof totals equal the JAX functions' (50,866 a
 Groth16 proof with 2 inputs); the bench-line fields follow from the H100
-model, with the card's share read from what a lane computes (37,987); chip_smoke.py takes its card model from the module, and the kernel
+model, with the card's share read from what a lane computes (34,013);
+chip_smoke.py takes its card model from the module, and the kernel
 bounds read the kernel table's work (PERF.md) as they did in chip_smoke."""
 
 import importlib.util
@@ -14,6 +15,8 @@ import pytest
 import torch
 
 from snark_bn254_verifier_tpu.utils import roofline as JR
+from snark_bn254_verifier_tpu_torch.ops.limbs import FR
+from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
 from snark_bn254_verifier_tpu_torch.utils import roofline as PR
 
 REPO = Path(__file__).resolve().parents[1]
@@ -84,16 +87,19 @@ def test_roofline_fields_with_the_computed_count():
 
 
 def test_lane_mults_of_the_bench_groth16_proof():
-    """One lane of the bench's Groth16 proof computes 37,987 products on
-    the twins: K2 5,638 (the table's 5,610 is chip_smoke's lanes' scalars),
-    K3 20,994, K4 11,348 and the G2 mask's 7; fewer than the 50,866 that
-    count both branches."""
+    """One lane of the bench's Groth16 proof computes 34,013 products on
+    the twins: the fixed-base MSM 1,664 (96 mixed adds of 11 products, the
+    3 points' 32 windows over the team's 16 threads; 15 adds of 16 in the
+    threads' tree; the affine form), K3 20,994, K4 11,348 and the G2
+    mask's 7; fewer than the 50,866 that count both branches and K2's
+    windowed chain. The window table is the verifier's set-up, not
+    counted."""
     from snark_bn254_verifier_tpu_torch.fixtures.gen import gen_groth16_vector
     from snark_bn254_verifier_tpu_torch.parallel.batch import Groth16BatchVerifier
 
     vec = gen_groth16_vector(0, num_inputs=2)
     got = PR.lane_mults(Groth16BatchVerifier, vec.vk, vec.proof, vec.public_inputs)
-    assert got == 5_638 + 20_994 + 11_348 + 7 == 37_987
+    assert got == 1_664 + 20_994 + 11_348 + 7 == 34_013
 
 
 def _load_chip_smoke():
@@ -146,6 +152,43 @@ def test_pippenger_work_equals_a_hand_count():
     scalars = torch.as_tensor(np.concatenate([sc0, sc1], -1))
     per_lane = 32 * 2 * 255 * 16 + 31 * (8 * 7 + 16) + 368
     assert PR.pippenger_work(points, scalars, 8) == 5 * 11 + 2 * per_lane
+
+
+FIXED_HAND_LANES = {
+    # lane 0: 0x11, 0x101, 0 and 5: 1 + 2 + 0 digits; lane 1: 0, 0,
+    # 2^16 + 3 and 7: 2 digits (3 and 1)
+    "two_lanes": ([[0x11, 0], [0x101, 0], [0, (1 << 16) + 3], [5, 7]], 1 + 2 + 2),
+    # r - 1 on point 0 (0x30644e...f0000000: 29 nonzero bytes, its low
+    # three zero), 2^248 on point 1 (the top window's digit 1), 0x80 on
+    # point 2
+    "top_window": ([[bn.R - 1], [1 << 248], [0x80], [1]], 29 + 1 + 1),
+}
+
+
+@pytest.mark.parametrize("case", FIXED_HAND_LANES)
+def test_fixed_msm_work_equals_a_hand_count(case):
+    """The fixed-base MSM's bound counts a mixed add (11 products) per
+    nonzero 8-bit digit of a finite point and one affine conversion (368)
+    a lane: four points, the last at infinity, whose scalars count
+    nothing."""
+    rows, digits = FIXED_HAND_LANES[case]
+    scalars = torch.as_tensor(np.stack([FR.pack(row, mont=False) for row in rows]))
+    inf = torch.tensor([False, False, False, True])
+    assert PR.fixed_msm_work(inf, scalars) == digits * 11 + len(rows[0]) * 368
+
+
+def test_fixed_msm_bytes_count_each_picked_entry_once():
+    """Bytes of the fixed-base MSM: 64 for each table entry some lane's
+    digit picks, read once however many lanes pick it; none for digit 0
+    or a point at infinity; the scalars' int32 limbs and the outputs (129
+    bytes a lane). Three lanes over points 0 and 1 (point 2 at infinity):
+    lanes 0 and 1 pick the same two entries (digit 3 of window 0 of point
+    0, digit 1 of window 1 of point 1), lane 2 one more (digit 3 of
+    window 0 of point 1)."""
+    rows = [[3, 3, 0], [1 << 8, 1 << 8, 3], [9, 9, 9]]
+    scalars = torch.as_tensor(np.stack([FR.pack(row, mont=False) for row in rows]))
+    inf = torch.tensor([False, False, True])
+    assert PR.fixed_msm_bytes(inf, scalars) == 3 * 64 + 3 * 16 * 3 * 4 + 3 * 129
 
 
 def test_count_fp_muls_of_a_mask_lane_and_a_final_exp():

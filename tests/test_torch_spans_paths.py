@@ -4,11 +4,14 @@ torch.profiler, give the span names of utils/profiling.py's layers, each
 under its parent, and their counters; the benchmark's readers read the
 table they leave.
 
-The heavy kernels' plain twins (the MSM, the Miller products, the final
-exponentiation, the single call's pairings) are stood in by results of
-their shapes: the verdicts are not under test here, and the profiler
-would otherwise record the twins' millions of tensor ops."""
+The heavy kernels' plain twins (the MSMs and the fixed-base window
+table, the Miller products, the final exponentiation, the single call's
+pairings) are stood in by results of their shapes: the verdicts are not
+under test here, and the profiler would otherwise record the twins'
+millions of tensor ops. The wrappers around them stay, so the fixed-base
+MSM's lanes are counted where the program counts them."""
 
+import hashlib
 import importlib.util
 from pathlib import Path
 
@@ -45,15 +48,28 @@ FACADE_SPANS = {"bn254.facade.verify": None,
 @pytest.fixture
 def light(monkeypatch):
     """The heavy twins stood in: every MSM gives the generator, every
-    Miller product and pairing an Fq12 of zeros (so no pairing is one)."""
+    window table zeros, every Miller product and pairing an Fq12 of zeros
+    (so no pairing is one). The stand-in msm_best records its calls in
+    ``light``."""
+    calls = []
+
+    def gens(b):
+        return tuple(torch.as_tensor(a) for a in pack_g1([bn.G1_GEN] * b))
 
     def msm_best(points, scalars, c=8):
-        return tuple(torch.as_tensor(a) for a in pack_g1([bn.G1_GEN] * points[0].shape[-1]))
+        calls.append(points[0].shape[0])
+        return gens(points[0].shape[-1])
+
+    def table(points):
+        return torch.zeros((points[0].shape[-1], M.FIXED_WINDOWS, M.FIXED_DIGITS,
+                            M.ENTRY_WORDS), dtype=torch.int32)
 
     def fq12(b):
         return torch.zeros((16, 12, b), dtype=torch.int32)
 
     monkeypatch.setattr(M, "msm_best", msm_best)
+    monkeypatch.setattr(M, "fixed_table_plain", table)
+    monkeypatch.setattr(M, "msm_fixed_plain", lambda table, scalars: gens(scalars.shape[-1]))
     monkeypatch.setattr(PC, "miller_mixed", lambda p, q, fixed, *tables: fq12(
         fixed[0][0].shape[-1]))
     monkeypatch.setattr(PC, "final_exp", lambda f: f)
@@ -62,6 +78,7 @@ def light(monkeypatch):
                         lambda ps, qs: torch.zeros(ps[0].shape[-1], dtype=torch.bool))
     # e(alpha, beta) from the stand-ins must not reach another test's cache
     monkeypatch.setattr(Groth16Verifier, "_cache", {})
+    return calls
 
 
 def traced(call):
@@ -102,7 +119,8 @@ def test_groth16_batch_spans_and_counters(light, sync):
     assert len(ok) == 12 and ver.last_stats.extra["parser"] == "native"
     assert parents(snap) == BATCH_SPANS  # no ring on the CPU: no wait
     assert all(s["count"] == 1 for s in snap["spans"].values())
-    assert snap["counters"] == {"bn254.batch.lanes": 12, "bn254.batch.host_rejects": 2}
+    assert snap["counters"] == {"bn254.batch.lanes": 12, "bn254.batch.host_rejects": 2,
+                                "bn254.msm.fixed_lanes": 12}
     d = snap["spans"]["bn254.batch.dispatch"]
     children = sum(snap["spans"][n]["total_s"] for n, parent in BATCH_SPANS.items() if parent)
     assert d["total_s"] == pytest.approx(d["self_s"] + children, rel=1e-6)
@@ -124,7 +142,8 @@ def test_a_ragged_groth16_batch_counts_one_python_parse(light):
     assert ver.last_stats.extra["parser"] == "python"
     assert parents(snap) == BATCH_SPANS
     assert snap["counters"] == {"bn254.batch.lanes": 4, "bn254.batch.host_rejects": 2,
-                                "bn254.batch.python_parse": 1}  # lanes 1 and 3
+                                "bn254.batch.python_parse": 1,  # lanes 1 and 3
+                                "bn254.msm.fixed_lanes": 4}
 
 
 def test_plonk_batch_spans_and_counters(light):
@@ -147,8 +166,9 @@ def test_a_plonk_batch_masked_on_the_host_is_parsed_only(light):
 
 
 def test_groth16_facade_spans_and_counters(light):
-    """One K2 call (prepared input) and one pairing product a call: two
-    reads back, four uploads for the MSM and six for the pairs."""
+    """One fixed-base MSM call (prepared input, over the prepared VK's
+    window table) and one pairing product a call: two reads back, one
+    upload for the MSM (its scalars) and six for the pairs."""
     vec = gen_groth16_vector(0)
     snap, ok = traced(lambda: Groth16Verifier.verify(vec.proof, vec.vk, vec.public_inputs,
                                                      device="cpu"))
@@ -157,7 +177,8 @@ def test_groth16_facade_spans_and_counters(light):
     assert {n: s["count"] for n, s in snap["spans"].items()} == {
         "bn254.facade.verify": 1, "bn254.facade.parse": 1, "bn254.backend.msm": 1,
         "bn254.backend.pairing": 1, "bn254.backend.pack": 2, "bn254.backend.read": 2}
-    assert snap["counters"] == {"bn254.backend.uploads": 10, "bn254.backend.reads": 2}
+    assert snap["counters"] == {"bn254.backend.uploads": 7, "bn254.backend.reads": 2,
+                                "bn254.msm.fixed_lanes": 1}
     assert reader("readbacks.single")({"trace": {}}) == 2.0
     facade = reader("facade_ms.single")({"trace": {}})
     pack = reader("backend_pack_ms.single")({"trace": {}})
@@ -174,6 +195,70 @@ def test_groth16_facade_refused_at_parse_reads_nothing_back(light):
                              "bn254.facade.parse": "bn254.facade.verify"}
     assert snap["counters"] == {}
     assert reader("readbacks.single")({"trace": {}}) == 0.0
+
+
+@pytest.mark.parametrize("path", ["groth16_batch", "groth16_single", "plonk_batch",
+                                  "groth16_batch_past_the_limit",
+                                  "groth16_single_past_the_limit"])
+def test_fixed_lanes_count_the_lanes_that_took_msm_fixed(light, monkeypatch, tmp_path, path):
+    """``bn254.msm.fixed_lanes`` under profiling.trace: a Groth16 batch
+    counts its lanes, a valid single call 1; a PlonK batch counts none,
+    and its three MSMs still go to msm_best (K2 on the card). Past
+    FIXED_MAX_POINTS (here 1, so the vector's 3 k-points and the single
+    call's 2 are past it) no table is built: the Groth16 MSM goes to
+    msm_best once a call, and nothing is counted."""
+    past = path.endswith("_past_the_limit")
+    if past:
+        monkeypatch.setattr(M, "FIXED_MAX_POINTS", 1)
+    if path.startswith("groth16_batch"):
+        vec, proofs, inputs, _ = groth16_batch_lanes(6)
+        ver = Groth16BatchVerifier(vec.vk, device="cpu")
+        call, want = (lambda: ver.verify_batch_async(proofs, inputs)), 6
+    elif path.startswith("groth16_single"):
+        vec = gen_groth16_vector(0)
+        call, want = (lambda: Groth16Verifier.verify(vec.proof, vec.vk, vec.public_inputs,
+                                                     device="cpu")), 1
+    else:
+        vec, proofs, inputs, _ = plonk_batch_lanes(4, {})
+        ver = PlonkBatchVerifier(vec.vk, device="cpu")
+        call, want = (lambda: ver.verify_batch_async(proofs, inputs, rng=lambda: 7)), None
+    call()  # the VK's set-up, outside the trace
+    light.clear()
+    with profiling.trace(str(tmp_path / "trace.json")):
+        call()
+    assert profiling.snapshot()["counters"].get("bn254.msm.fixed_lanes") == (
+        None if past else want)
+    assert len(light) == {"plonk_batch": 3}.get(path, 1 if past else 0)
+
+
+def test_groth16_facade_keeps_the_vks_used_last(light, monkeypatch):
+    """The facade's cache holds the CACHE_VKS VKs used last (here 2), each
+    with its prepared key and window table: a VK used again is not
+    prepared again, a third VK drops the one used longest ago, and a proof
+    that fails to parse keeps its VK cached."""
+    monkeypatch.setattr(Groth16Verifier, "CACHE_VKS", 2)
+    vecs = [gen_groth16_vector(seed) for seed in range(3)]
+    keys = [hashlib.sha256(v.vk).digest() for v in vecs]
+    cache = Groth16Verifier._cache
+
+    def verify(i, proof=None):
+        v = vecs[i]
+        try:
+            Groth16Verifier.verify(v.proof if proof is None else proof, v.vk, v.public_inputs,
+                                   device="cpu")
+        except errors.VerifierError:
+            pass
+
+    verify(0)
+    verify(1)
+    first = cache[keys[0]]
+    assert first[1].tables and list(cache) == keys[:2]
+    verify(0, proof=vecs[0].proof[:100])  # refused at parse: the cache as it was
+    assert list(cache) == keys[:2] and cache[keys[0]] is first
+    verify(0)  # VK 0 now the newest
+    assert list(cache) == [keys[1], keys[0]] and cache[keys[0]] is first
+    verify(2)
+    assert list(cache) == [keys[0], keys[2]] and cache[keys[0]] is first
 
 
 def test_plonk_facade_spans(light):
