@@ -26,7 +26,10 @@ It builds the port's CUDA kernels from csrc/, then
      pass) on the PlonK batch's own 1024 lanes, a bad lane of every kind
      among them, bit for bit against their twins, K7a's valid bits against
      the verdicts, with its registers, local and shared bytes and warps
-     and lanes a block; the fixed-base MSM (msm_fixed) at the Groth16
+     and lanes a block; g2_lines (the variable pair's line rows that K3
+     reads) at 1024 and 2048 lanes, exact against its twin, timed alone,
+     and K3 timed alone over its rows, with no variable pair on the same
+     lanes, and with g2_lines (its wrapper); the fixed-base MSM (msm_fixed) at the Groth16
      batch cell's shape (4 points, 2048 lanes) and the single call's (3
      points, B = 1), on window tables built by K2, exact against its
      twin, K2 and the oracle, timed beside K2, and storing nothing past
@@ -39,7 +42,7 @@ It builds the port's CUDA kernels from csrc/, then
      device="cuda")`` on a batch of 1024 proofs of the bench vector with
      bad lanes at fixed positions, checks the exact bool vector and that
      its kernels (K1 in its fused form g2_on_curve, exactly once,
-     msm_fixed, K3 and K4) were launched, checks a small batch against
+     msm_fixed, g2_lines, K3 and K4) were launched, checks a small batch against
      the CPU run, and times warm batches;
   3. drives the PlonK batch, ``PlonkBatchVerifier(vk, device="cuda")`` on
      1024 lanes of the synthetic BSB22 vector with bad lanes of every kind
@@ -113,12 +116,13 @@ SOURCE = {"mont_mul": CSRC + "fp.cuh", "g2_on_curve": CSRC + "curve.cuh",
           "msm_affine": CSRC + "msm.cuh", "msm_fixed": CSRC + "msm_fixed.cuh",
           "miller_mixed": CSRC + "team.cuh", "final_exp": CSRC + "team.cuh",
           "miller_product": CSRC + "team.cuh", "msm_pippenger": CSRC + "pippenger.cuh",
-          "plonk_lanes_a": CSRC + "plonk.cuh", "plonk_lanes_b": CSRC + "plonk.cuh"}
+          "plonk_lanes_a": CSRC + "plonk.cuh", "plonk_lanes_b": CSRC + "plonk.cuh",
+          "g2_lines": CSRC + "g2_lines.cuh"}
 # run on a team of threads per lane (K7: a thread a lane in each warp of
 # its block, a warp a role over the block's lanes, so its threads a lane
 # are its warps a block)
 TEAM_KERNELS = ("msm_affine", "miller_mixed", "final_exp", "miller_product", "plonk_lanes_a",
-                "plonk_lanes_b", "msm_fixed")
+                "plonk_lanes_b", "msm_fixed", "g2_lines")
 PALLAS = "snark_bn254_verifier_tpu/ops/"
 # kernel -> (TPU kernels it replaces, file:line); the first is "replaces"
 REPLACES = {
@@ -128,6 +132,8 @@ REPLACES = {
     # the same TPU kernels where the points are fixed (a VK's)
     "msm_fixed": [PALLAS + "pairing_pallas.py:206", PALLAS + "pairing_pallas.py:271"],
     "miller_mixed": [PALLAS + "pairing_pallas.py:99"],
+    # the G2 steps of that kernel's variable pair, run before K3
+    "g2_lines": [PALLAS + "pairing_pallas.py:99"],
     "final_exp": [PALLAS + "pairing_pallas.py:179", PALLAS + "pairing_pallas.py:191"],
     "miller_product": [PALLAS + "pairing_pallas.py:84", PALLAS + "pairing_pallas.py:171"],
     # no Pallas original: the JAX package's bucket MSM is XLA
@@ -227,9 +233,9 @@ def run_recorded(fn):
     calls = []
 
     def recorder(name):
-        def rec(*args):
+        def rec(*args, **kwargs):
             calls.append((name, args))
-            return getattr(real, name)(*args)
+            return getattr(real, name)(*args, **kwargs)
         return rec
 
     stand_in = types.SimpleNamespace(
@@ -601,17 +607,40 @@ def phase_miller_mixed(ctx):
                     f"miller_mixed ({label}) lane {lane} != oracle after final exp")
         msg = f"K3 miller_mixed {label} B={b}: exact vs plain, oracle ok (8 lanes)"
         if timed:
-            ms = time_kernel(lambda: PC.miller_mixed(*args, lines, tails), 3)
-            msg += f"; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms (warm)"
+            # K3 alone (its C entry in a CUDA graph) over the rows g2_lines
+            # prepared, then with no variable pair on the same fixed lanes;
+            # and the wrapper, g2_lines and K3 together
+            rows = PC.g2_lines(*args[:2])
+            fpx = torch.stack([PC._zero_masked(x, inf) for x, _, inf in fixed])
+            fpy = torch.stack([PC._zero_masked(y, inf) for _, y, inf in fixed])
+            f_out = torch.empty_like(got)
+
+            def k3(vlines):
+                return lambda: PC.launch(ctx.dev, "bn_miller_mixed", vlines, fpx.data_ptr(),
+                                         fpy.data_ptr(), 2, lines.data_ptr(), tails.data_ptr(),
+                                         f_out.data_ptr(), b)
+
+            k3(rows.data_ptr())()
+            require(torch.equal(f_out, got), "K3 over g2_lines' rows differs from the wrapper")
+            ms = time_graph(k3(rows.data_ptr()), 5)
+            ms_fixed_only = time_graph(k3(None), 5)
+            ms_with_rows = time_graph(lambda: PC.miller_mixed(*args, lines, tails), 5)
+            msg += (f"; K3 alone {ms:.3f} ms, with no variable pair {ms_fixed_only:.3f}, "
+                    f"g2_lines and K3 (the wrapper) {ms_with_rows:.3f}, plain {plain_ms:.1f} ms "
+                    f"(warm)")
             ctx.miller_out = got
-            # lane 4: every pair finite (lanes 0-3 are edges)
-            per_lane = count_fp_muls(
-                lambda: PR.miller_mixed(*lane_cpu(args, 4), lines.cpu(), tails.cpu()))
-            flat = [t for pt in args[:2] for t in pt] + [t for pt in args[2] for t in pt]
-            bnd = bound(per_lane * b, nbytes(*flat, lines, tails, got))
+            # lane 4: every pair finite (lanes 0-3 are edges); K3's own
+            # work, the twin's products less those of the variable pair's
+            # lines, which g2_lines computes; it reads their rows
+            lane = lane_cpu(args, 4)
+            per_lane = (count_fp_muls(lambda: PR.miller_mixed(*lane, lines.cpu(), tails.cpu()))
+                        - count_fp_muls(lambda: PR.var_line_rows(*lane[:2])))
+            flat = [t for pt in args[2] for t in pt]
+            bnd = bound(per_lane * b, nbytes(*flat, rows, lines, tails, got))
         print(msg)
         err = max(err, e)
-    out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": [16, 12, b], **bnd}
+    out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": [16, 12, b],
+           "ms_no_variable_pair": ms_fixed_only, "ms_with_g2_lines": ms_with_rows, **bnd}
     # fixed-only (nf = 2) on the PlonK batch's own inputs: (combo, -quot)
     # over the KZG [1]_2 and [x]_2 tables; work counted on lane 0
     (args,) = [a for name, a in plonk_kernel_args(ctx) if name == "miller_mixed"]
@@ -1128,6 +1157,58 @@ def phase_msm_fixed(ctx):
     return out
 
 
+def phase_g2_lines(ctx):
+    """g2_lines, the variable pair's line rows that K3 multiplies into f,
+    at the Groth16 batch's shapes (1024 and FIXED_LANES lanes), P at
+    infinity on lane 0 and Q on lane 1: exact against its plain twin
+    (ops/pairing.py::var_line_rows), the line (1, 0, 0) on both edge
+    lanes; its time alone (its C entry in a CUDA graph) beside its bound:
+    the products the twin counts for a finite lane, the pair read once and
+    the rows (19,584 B a lane) written once."""
+    import torch
+
+    from snark_bn254_verifier_tpu_torch.models.packing import pack_g1, pack_g2
+    from snark_bn254_verifier_tpu_torch.ops import pairing as PR
+    from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
+    from snark_bn254_verifier_tpu_torch.ops.limbs import FQ
+
+    one = [(FQ.r_mod >> (32 * k)) & 0xFFFFFFFF for k in range(8)]
+    one = torch.tensor([w - (1 << 32) if w >> 31 else w for w in one], dtype=torch.int32,
+                       device=ctx.dev)
+    out = {"max_abs_err": 0}
+    for b in (ctx.batch, FIXED_LANES):
+        vp, vq = ctx.lanes(ctx.g1_pool, b), ctx.lanes(ctx.g2_pool, b)
+        vp[0] = None
+        vq[1] = None
+        P = tuple(torch.as_tensor(a, device=ctx.dev) for a in pack_g1(vp))
+        Q = tuple(torch.as_tensor(a, device=ctx.dev) for a in pack_g2(vq))
+        got = PC.g2_lines(P, Q)
+        want, plain_ms = time_plain(lambda: PR.var_line_rows(P, Q))
+        err = max_abs_err(got, want)
+        require(err == 0, f"g2_lines B={b} differs from its plain twin")
+        for lane in (0, 1):
+            off = got[..., lane]
+            require(bool((off[:, 0, 0] == one).all()) and not off[:, 0, 1].any()
+                    and not off[:, 1:].any(), f"g2_lines: edge lane {lane}'s rows are not one")
+        skip = P[2] | Q[2]
+        px, py, qx, qy = (PC._zero_masked(t, skip) for t in (P[0], P[1], Q[0], Q[1]))
+        rows = torch.empty_like(got)
+        ms = time_graph(lambda: PC.launch(ctx.dev, "bn_g2_lines", px.data_ptr(), py.data_ptr(),
+                                          qx.data_ptr(), qy.data_ptr(), rows.data_ptr(), b), 10)
+        require(torch.equal(rows, got), "g2_lines' C entry differs from its wrapper")
+        work = count_fp_muls(lambda: PR.var_line_rows(lane_cpu(P, 2), lane_cpu(Q, 2))) * b
+        bnd = bound(work, nbytes(px, py, qx, qy, rows))
+        print(f"g2_lines B={b}: exact vs plain, edge lanes one; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.1f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+              f"{nbytes(rows) // b} B written a lane")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out.update({f"ms_b{b}": ms, f"plain_ms_b{b}": plain_ms, f"bound_ms_b{b}": bnd["bound_ms"],
+                    f"fp_muls_b{b}": work, f"bytes_b{b}": bnd["bytes"]})
+        if b == ctx.batch:
+            out.update(ms=ms, plain_ms=plain_ms, shape=list(got.shape), **bnd)
+    return out
+
+
 # One on-card phase per entry of KERNEL_ENTRY_POINTS (checked by
 # tests/test_torch_kernel_registry.py).
 KERNEL_PHASES = {
@@ -1135,6 +1216,7 @@ KERNEL_PHASES = {
     "g2_on_curve": phase_g2_on_curve,
     "msm_affine": phase_msm_affine,
     "miller_mixed": phase_miller_mixed,
+    "g2_lines": phase_g2_lines,
     "final_exp": phase_final_exp,
     "miller_product": phase_miller_product,
     "msm_pippenger": phase_msm_pippenger,
@@ -1144,7 +1226,7 @@ KERNEL_PHASES = {
 }
 # The kernels each path launches; together they cover KERNEL_ENTRY_POINTS
 # but UNLAUNCHED, K1's elementwise form (its fused form runs on the slice).
-SLICE_KERNELS = ("g2_on_curve", "msm_fixed", "miller_mixed", "final_exp")
+SLICE_KERNELS = ("g2_on_curve", "msm_fixed", "g2_lines", "miller_mixed", "final_exp")
 PLONK_BATCH_KERNELS = ("plonk_lanes_a", "msm_affine", "plonk_lanes_b", "miller_mixed",
                        "final_exp")
 SINGLE_KERNELS = ("msm_affine", "msm_fixed", "final_exp", "miller_product")
@@ -1624,6 +1706,9 @@ def kernel_attrs(lib, names=None) -> dict:
                      "shared_bytes_per_block": vals[2] + vals[3]}
         if name in TEAM_KERNELS:
             out[name]["team"] = {"threads_per_lane": vals[4], "lanes_per_block": vals[5]}
+        if hasattr(lib, f"bn_{name}_occupancy"):  # cudaOccupancyMaxActiveBlocksPerMultiprocessor
+            _build.check(lib, getattr(lib, f"bn_{name}_occupancy")(vals), f"bn_{name}_occupancy")
+            out[name]["blocks_per_sm"] = vals[0]
     return out
 
 

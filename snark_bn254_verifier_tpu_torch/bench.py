@@ -87,7 +87,7 @@ KERNEL_VALIDATION_COVERAGE = {
     "msm": ("msm_affine", "msm_pippenger"),
     "msm_fixed": ("msm_fixed",),
     "miller_final_exp": ("miller_product", "final_exp"),
-    "miller_mixed_var": ("miller_mixed", "final_exp"),
+    "miller_mixed_var": ("g2_lines", "miller_mixed", "final_exp"),
     "miller_mixed_fixed_only": ("miller_mixed",),
     "plonk_lanes": ("plonk_lanes_a", "plonk_lanes_b"),
 }

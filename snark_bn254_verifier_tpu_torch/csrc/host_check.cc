@@ -16,6 +16,7 @@
 #include <thread>
 #include <vector>
 
+#include "g2_lines.cuh"
 #include "msm_fixed.cuh"
 #include "pippenger.cuh"
 #include "plonk.cuh"
@@ -218,16 +219,24 @@ int host_msm_pippenger(const int32_t* px, const int32_t* py, const uint8_t* pinf
   return host_pip_combine(wsum, 1, c, ox, oy, oinf, n);
 }
 
-// K3, K4 and K5 at the kernels' shapes (team.cuh); K2's above (msm.cuh).
-int host_miller_mixed(const int32_t* px, const int32_t* py, const int32_t* qx,
-                      const int32_t* qy, const int32_t* fpx, const int32_t* fpy,
-                      int nf, const int32_t* lines, const int32_t* tails,
-                      int32_t* out, long long n) {
+// g2_lines (g2_lines.cuh) at its shape, then K3, K4 and K5 at the
+// kernels' shapes (team.cuh); K2's above (msm.cuh).
+int host_g2_lines(const int32_t* px, const int32_t* py, const int32_t* qx, const int32_t* qy,
+                  int32_t* out, long long n) {
+  host_team_grid(n, GL_TEAM, GL_LPB, g2_lines_smem_bytes(),
+                 [&](int tid, long long block, uint32_t* smem) {
+                   g2_lines_team(tid, block, smem, px, py, qx, qy, out, n);
+                 });
+  return 0;
+}
+
+int host_miller_mixed(const int32_t* vlines, const int32_t* fpx, const int32_t* fpy, int nf,
+                      const int32_t* lines, const int32_t* tails, int32_t* out, long long n) {
   if (nf < 0 || nf > NF_MAX) return 1;
   host_team_grid(n, MM_TEAM, MM_LPB, miller_mixed_smem_bytes(nf),
                  [&](int tid, long long block, uint32_t* smem) {
-                   miller_mixed_team(tid, block, smem, px, py, qx, qy, fpx, fpy, nf, lines,
-                                     tails, out, n);
+                   miller_mixed_team(tid, block, smem, vlines, fpx, fpy, nf, lines, tails, out,
+                                     n);
                  });
   return 0;
 }

@@ -6,6 +6,9 @@
 
 #include "curve.cuh"
 
+// 32-bit words of a line row (l00, l10, l11) as g2_lines writes it
+#define LINE_ROW_WORDS 48
+
 struct g2j {
   fq2 x, y, z;
 };

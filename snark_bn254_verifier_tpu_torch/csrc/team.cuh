@@ -17,10 +17,12 @@
 // team of 6, one thread per coefficient, was slower on the H100 for both
 // kernels: PERF.md). A sparse line (w-coefficients 0, 1 and 3) is three
 // terms; the Granger-Scott cyclotomic squaring is nine Fq2 squarings over
-// the team, then a linear step. The G2 steps of a chain's variable pair
-// (K3 has one chain, K5 one per pair) run as rounds of independent Fq2
-// products (the *_OPS tables below, one product per thread), with the few
-// additions between rounds on one thread. Every value is fully reduced,
+// the team, then a linear step. The G2 steps of K5's variable pairs (one
+// a chain) run as rounds of independent Fq2 products (the *_OPS tables
+// below, one product per thread), with the few additions between rounds
+// on one thread. K3 runs no G2 step: its variable pair's lines come from
+// kernel g2_lines (g2_lines.cuh), a row a step, copied into the lane's
+// slots while the team squares f. Every value is fully reduced,
 // so the outputs are limb-equal to the per-lane formulas of
 // ops/pairing.py: a field element has one reduced form, whatever the
 // order of the products.
@@ -29,7 +31,8 @@
 // threadIdx l * TEAM + r; K5's lane is MP_CHAINS such teams). Shared
 // memory holds, per block, the fixed pairs' line tables (K3; staged once,
 // every lane of the block reads the same rows), then per lane its Fq12
-// values, a scratch area and the G2 slots, at a stride of an odd number
+// values, a scratch area and its slots (K3: the fixed pairs' P and the
+// variable pair's rows; K5: the G2 slots), at a stride of an odd number
 // of words so that the lanes of a warp fall on different banks. The whole
 // block meets at each barrier; the schedule depends on no lane data, and
 // the threads of lanes past the end run on the last lane's inputs and
@@ -57,7 +60,7 @@ inline thread_local std::barrier<>* team_barrier = nullptr;
 // The kernels' shapes: threads per lane and lanes per block, chosen by
 // measurement on an H100 (PERF.md records the shapes tried).
 #define MM_TEAM 18  // K3
-#define MM_LPB 4
+#define MM_LPB 8
 #define FE_TEAM 12  // K4
 #define FE_LPB 8
 #define MP_TEAM 18   // K5: threads per chain
@@ -238,7 +241,7 @@ BN_INLINE void team_set_one(const team_t<TEAM>& t, fq2* f) {
 #define FE_LANE_WORDS ((FE_BUFS * 6 + TEAM_SCRATCH) * 16 + 1)
 
 enum {
-  // A chain's Fq2 slots (K3's after f and the scratch; each K5 chain's):
+  // A K5 chain's Fq2 slots:
   // the variable pair's T = (X, Y, Z) and Q, the last line (C0, C1, C3),
   // P (c0 = xP, c1 = yP), its on flag, the add step's Q operand, the
   // Frobenius images of Q, the fixed pairs' P, the lines' products at P
@@ -247,7 +250,11 @@ enum {
   G_Q1X, G_Q1Y, G_Q2X, G_Q2Y, G_FP, G_L = G_FP + NF_MAX, G_T0 = G_L + 2 + NF_MAX,
   G_SLOTS = G_T0 + 16
 };
-#define MM_LANE_FQ2 (6 + TEAM_SCRATCH + G_SLOTS)
+// K3 per lane: its f, scratch and slots: the fixed pairs' P and their
+// lines' products at P, then the variable pair's line rows of a step (its
+// tangent row, then its chord row), which g2_lines wrote.
+enum { M_FP, M_L = M_FP + NF_MAX, M_V = M_L + NF_MAX, M_SLOTS = M_V + 6 };
+#define MM_LANE_FQ2 (6 + TEAM_SCRATCH + M_SLOTS)
 #define MM_LANE_WORDS (MM_LANE_FQ2 * 16 + 1)
 // K5 per chain: its f, a partial product, the lane's product, scratch and
 // slots; per lane MP_CHAINS of them.
@@ -494,11 +501,81 @@ BN_INLINE void team_store_out(const team_t<TEAM>& t, int32_t* out, long long n, 
 
 // ------------------------------------------------------------------ K3
 
-// Thread ``tid`` of block ``block`` of kernel K3: the arguments of
-// pairing_cuda.py::miller_mixed (px null where there is no variable
-// pair), nf <= NF_MAX; smem as miller_mixed_smem_bytes(nf).
-BN_INLINE void miller_mixed_team(int tid, long long block, uint32_t* smem, const int32_t* px,
-                                 const int32_t* py, const int32_t* qx, const int32_t* qy,
+// One 32-bit word from device memory into shared memory: cp.async on the
+// card, so the copy runs under the thread's next products; a plain copy
+// on the host. copy_wait() waits for the thread's copies.
+BN_INLINE void copy_word(uint32_t* dst, const int32_t* src) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+#else
+  *dst = (uint32_t)*src;
+#endif
+}
+
+BN_INLINE void copy_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// Rows row .. row + rows - 1 of the variable pair's lines (g2_lines'
+// lane-minor words) into each lane's slots from M_V on; the block's
+// threads take the (word, lane) pairs in turn, lane fastest, so a warp
+// reads neighbouring lanes of one word.
+BN_INLINE void mm_fetch_rows(int tid, long long block, uint32_t* lanes, const int32_t* vlines,
+                             long long n, int row, int rows) {
+  const int total = rows * LINE_ROW_WORDS * MM_LPB;
+#pragma unroll 1
+  for (int w = tid; w < total; w += MM_LPB * MM_TEAM) {
+    const int l = w % MM_LPB, word = w / MM_LPB;
+    const long long lane = block * MM_LPB + l < n ? block * MM_LPB + l : n - 1;
+    copy_word(lanes + (long long)l * MM_LANE_WORDS + (6 + TEAM_SCRATCH + M_V) * 16 + word,
+              vlines + ((long long)row * LINE_ROW_WORDS + word) * n + lane);
+  }
+}
+
+// One line stage of K3: each fixed line's l10 = c1 xP_j (c1 from table
+// row ``row``), one product a thread, then f times the variable pair's
+// line V (its row, already (1, 0, 0) where the pair is off), then times
+// each fixed pair's (yP_j, c1 xP_j, c3) with c3 from row ``row3`` (one
+// where P_j is at infinity, the all-zero encoding). The thread's row
+// copies are waited for before the barrier, so V is complete after it.
+template <int TEAM>
+BN_INLINE void mm_lines(const team_t<TEAM>& t, fq2* f, fq2* scratch, fq2* G, const fq2* V,
+                        const fq2* tab, int nf, int row, int row3) {
+  if (t.r < nf) {
+    fq2 p;
+    fq2_mul_fq(p, tab[t.r * TAB_ROWS + row], G[M_FP + t.r].c0);
+    G[M_L + t.r] = p;
+  }
+  copy_wait();
+  TEAM_SYNC();
+  if (V) team_mul_line(t, f, scratch, V[0], V[1], V[2]);
+  for (int j = 0; j < nf; ++j) {
+    const fq2& pj = G[M_FP + j];
+    fq2 l00, l10 = G[M_L + j], l11 = tab[j * TAB_ROWS + row3];
+    l00.c0 = pj.c1;
+    fp_zero(l00.c1);
+    line_or_one(l00, l10, l11, !(fp_is_zero(pj.c0) && fp_is_zero(pj.c1)));
+    team_mul_line(t, f, scratch, l00, l10, l11);
+  }
+}
+
+// Thread ``tid`` of block ``block`` of kernel K3: f = the product of the
+// Miller values of the variable pair, whose lines g2_lines wrote to
+// vlines (null where there is no variable pair), and of nf <= NF_MAX
+// fixed pairs (P in fpx, fpy (nf, 16, n); lines in the VK's tables), on
+// one f chain, in the schedule of ops/pairing.py::miller_product_mixed
+// (table rows per fixed pair: dbl c1, dbl c3, add c1, add c3, STEPS
+// each, then the tails' c1 (2) and c3 (2)); smem as
+// miller_mixed_smem_bytes(nf). The team runs no G2 step: a step's
+// variable rows are copied into the lane's slots as it starts, and the
+// copies complete under f^2. In exact arithmetic the shared chain equals
+// the product of the separate loops, and every value is fully reduced, so
+// f is limb-equal to the plain twin.
+BN_INLINE void miller_mixed_team(int tid, long long block, uint32_t* smem, const int32_t* vlines,
                                  const int32_t* fpx, const int32_t* fpy, int nf,
                                  const int32_t* lines, const int32_t* tails, int32_t* out,
                                  long long n) {
@@ -506,7 +583,6 @@ BN_INLINE void miller_mixed_team(int tid, long long block, uint32_t* smem, const
   const team_t<TEAM> t = make_team<TEAM>(tid % TEAM);
   const long long lane = block * MM_LPB + tid / TEAM;
   const long long src = lane < n ? lane : n - 1;
-  const bool has_var = px != nullptr;
   // the fixed pairs' line rows, converted to 32-bit limbs, once per block
   fq2* tab = (fq2*)smem;
   for (int w = tid; w < nf * TAB_ROWS * 16; w += MM_LPB * TEAM) {
@@ -518,19 +594,33 @@ BN_INLINE void miller_mixed_team(int tid, long long block, uint32_t* smem, const
     smem[w] = ((uint32_t)BN_LDG(s + 4 * kk + c) & 0xFFFFu) |
               ((uint32_t)BN_LDG(s + 4 * kk + 2 + c) << 16);
   }
-  fq2* f = (fq2*)(smem + (long long)nf * TAB_ROWS * 16 + (long long)(tid / TEAM) * MM_LANE_WORDS);
+  uint32_t* lanes = smem + (long long)nf * TAB_ROWS * 16;
+  fq2* f = (fq2*)(lanes + (long long)(tid / TEAM) * MM_LANE_WORDS);
   fq2* scratch = f + 6;
   fq2* G = scratch + TEAM_SCRATCH;
+  const fq2* V = vlines ? G + M_V : nullptr;
   if (t.lead) {
     for (int j = 0; j < nf; ++j) {
-      load_fp(G[G_FP + j].c0, fpx + (long long)j * 16 * n + src, n);
-      load_fp(G[G_FP + j].c1, fpy + (long long)j * 16 * n + src, n);
+      load_fp(G[M_FP + j].c0, fpx + (long long)j * 16 * n + src, n);
+      load_fp(G[M_FP + j].c1, fpy + (long long)j * 16 * n + src, n);
     }
-    if (has_var) var_pair_put(G, px, py, qx, qy, n, src);
   }
   team_set_one(t, f);
   TEAM_SYNC();
-  team_miller(t, f, scratch, G, has_var, tab, nf);
+  const int S = BN_MILLER_STEPS;
+  int row = 0;  // the variable pair's next line row
+#pragma unroll 1
+  for (int i = 0; i < S; ++i) {
+    const int rows = 1 + MILLER_BITS[i];
+    if (V) mm_fetch_rows(tid, block, lanes, vlines, n, row, rows);
+    row += rows;
+    team_mul(t, f, f, f, scratch);
+    mm_lines(t, f, scratch, G, V, tab, nf, i, S + i);
+    if (rows == 2) mm_lines(t, f, scratch, G, V ? V + 3 : V, tab, nf, 2 * S + i, 3 * S + i);
+  }
+  if (V) mm_fetch_rows(tid, block, lanes, vlines, n, row, 2);
+  for (int k = 0; k < 2; ++k)  // the correction lines, with the tails
+    mm_lines(t, f, scratch, G, V ? V + 3 * k : V, tab, nf, 4 * S + k, 4 * S + 2 + k);
   team_store_out(t, out, n, lane, f);
 }
 

@@ -18,10 +18,10 @@
 // What bounds them, and the designs, are in msm.cuh and team.cuh. K2 and
 // K5 run the rolled form of the Montgomery product (fp.cuh), which was
 // faster for them on the H100. K4 keeps the unrolled one, which was faster
-// for it at batch one (PERF.md). K3 keeps it too, though the rolled form
-// measured faster for K3 as well: that is a choice of scope, not of
-// measurement, and K3 takes the rolled form when its code next changes
-// (the rule then being "all but K4").
+// for it at batch one (PERF.md). K3 keeps it too: the rolled form
+// measured faster for K3 while K3 ran its variable pair's G2 steps in the
+// team, which kernel g2_lines now runs, so the choice waits for a
+// measurement on K3's new schedule (ROADMAP).
 #include <cuda_runtime.h>
 
 #if BN_TEAM_KERNEL == 2 || BN_TEAM_KERNEL == 5
@@ -58,6 +58,17 @@ static int kernel_attrs(Kernel kernel, int team, int lpb, long long smem, int* o
   return 0;
 }
 
+// Blocks of the kernel resident on one SM at its launch shape
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into out[0].
+template <typename Kernel>
+static int kernel_occupancy(Kernel kernel, int team, int lpb, long long smem, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, team * lpb,
+                                                            (size_t)smem);
+}
+
 #if BN_TEAM_KERNEL == 2
 
 static __global__ void msm_affine_kernel(const int32_t* px, const int32_t* py,
@@ -79,31 +90,38 @@ extern "C" int bn_msm_affine_attrs(int* out) {
   return kernel_attrs(msm_affine_kernel, MSM_TEAM, MSM_LPB, msm_affine_smem_bytes(), out);
 }
 
-#elif BN_TEAM_KERNEL == 3
-
-static __global__ void miller_mixed_kernel(const int32_t* px, const int32_t* py,
-                                           const int32_t* qx, const int32_t* qy,
-                                           const int32_t* fpx, const int32_t* fpy, int nf,
-                                           const int32_t* lines, const int32_t* tails,
-                                           int32_t* out, long long n) {
-  extern __shared__ uint32_t smem[];
-  miller_mixed_team(threadIdx.x, blockIdx.x, smem, px, py, qx, qy, fpx, fpy, nf, lines, tails,
-                    out, n);
+extern "C" int bn_msm_affine_occupancy(int* out) {
+  return kernel_occupancy(msm_affine_kernel, MSM_TEAM, MSM_LPB, msm_affine_smem_bytes(), out);
 }
 
-extern "C" int bn_miller_mixed(const int32_t* px, const int32_t* py, const int32_t* qx,
-                               const int32_t* qy, const int32_t* fpx, const int32_t* fpy,
+#elif BN_TEAM_KERNEL == 3
+
+static __global__ void miller_mixed_kernel(const int32_t* vlines, const int32_t* fpx,
+                                           const int32_t* fpy, int nf, const int32_t* lines,
+                                           const int32_t* tails, int32_t* out, long long n) {
+  extern __shared__ uint32_t smem[];
+  miller_mixed_team(threadIdx.x, blockIdx.x, smem, vlines, fpx, fpy, nf, lines, tails, out, n);
+}
+
+// vlines: the variable pair's line rows from g2_lines (g2_lines.cu), or
+// null where there is no variable pair.
+extern "C" int bn_miller_mixed(const int32_t* vlines, const int32_t* fpx, const int32_t* fpy,
                                int nf, const int32_t* lines, const int32_t* tails, int32_t* out,
                                long long n, void* stream) {
   if (nf < 0 || nf > NF_MAX) return (int)cudaErrorInvalidValue;
   return launch_team(miller_mixed_kernel, MM_TEAM, MM_LPB, miller_mixed_smem_bytes(nf), n,
-                     (cudaStream_t)stream, px, py, qx, qy, fpx, fpy, nf, lines, tails, out);
+                     (cudaStream_t)stream, vlines, fpx, fpy, nf, lines, tails, out);
 }
 
 // At NF_MAX fixed pairs.
 extern "C" int bn_miller_mixed_attrs(int* out) {
   return kernel_attrs(miller_mixed_kernel, MM_TEAM, MM_LPB, miller_mixed_smem_bytes(NF_MAX),
                       out);
+}
+
+extern "C" int bn_miller_mixed_occupancy(int* out) {
+  return kernel_occupancy(miller_mixed_kernel, MM_TEAM, MM_LPB,
+                          miller_mixed_smem_bytes(NF_MAX), out);
 }
 
 #elif BN_TEAM_KERNEL == 4

@@ -163,10 +163,11 @@ def team_unit(k: int) -> tuple:
 # team_kernels.cu is built once per team kernel (K2-K5); pippenger.cu is K6,
 # built twice: its stages 1-5 and its combine (pippenger.cu's head comment);
 # plonk_kernels.cu is K7, the PlonK batch's lane pass; msm_fixed.cu the
-# fixed-base MSM of the Groth16 prepared input.
+# fixed-base MSM of the Groth16 prepared input; g2_lines.cu the variable
+# pair's line rows that K3 reads in the Groth16 batch.
 UNITS = ([("kernels.cu", ())] + [team_unit(k) for k in (2, 3, 4, 5)]
          + [("pippenger.cu", (f"-DBN_PIP_COMBINE={k}",)) for k in (0, 1)]
-         + [("plonk_kernels.cu", ()), ("msm_fixed.cu", ())])
+         + [("plonk_kernels.cu", ()), ("msm_fixed.cu", ()), ("g2_lines.cu", ())])
 OBJ_DIR = BUILD_DIR / "obj"
 
 
@@ -237,7 +238,8 @@ def bind_kernels(lib_path: Path) -> ctypes.CDLL:
         "bn_mont_mul": [_P, _P, _P, _N, _I, _P],
         "bn_g2_on_curve": [_P, _P, _P, _P, _P, _N, _P],
         "bn_msm_affine": [_P, _P, _P, _P, _I, _P, _P, _P, _N, _P],
-        "bn_miller_mixed": [_P] * 6 + [_I, _P, _P, _P, _N, _P],
+        "bn_miller_mixed": [_P] * 3 + [_I, _P, _P, _P, _N, _P],
+        "bn_g2_lines": [_P] * 5 + [_N, _P],
         "bn_final_exp": [_P, _P, _N, _P],
         "bn_miller_product": [_P] * 4 + [_I, _P, _N, _P],
         "bn_msm_pippenger": [_P] * 4 + [_I, _I, _I] + [_P] * 5 + [_N, _P],
@@ -259,6 +261,10 @@ def bind_kernels(lib_path: Path) -> ctypes.CDLL:
         "bn_plonk_lanes_a_attrs": [_P],
         "bn_plonk_lanes_b_attrs": [_P],
         "bn_msm_fixed_attrs": [_P],
+        "bn_g2_lines_attrs": [_P],
+        "bn_msm_affine_occupancy": [_P],
+        "bn_miller_mixed_occupancy": [_P],
+        "bn_g2_lines_occupancy": [_P],
     }
     for fn, args in sigs.items():
         getattr(lib, fn).argtypes = args
@@ -280,7 +286,8 @@ def load_host_check(rolled: bool = False) -> ctypes.CDLL:
     """Build the kernels' headers with the host C++ compiler into a test
     library (csrc/host_check.cc) and load it; ``rolled`` builds it with
     the rolled Montgomery product (-DBN_ROLLED_CIOS=1), the form that
-    team_kernels.cu gives K2 and K5 and pippenger.cu K6."""
+    team_kernels.cu gives K2 and K5, pippenger.cu K6 and g2_lines.cu
+    g2_lines."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         raise RuntimeError("no host C++ compiler")
@@ -300,7 +307,8 @@ def load_host_check(rolled: bool = False) -> ctypes.CDLL:
     lib.host_fq12_mul.argtypes = [_P, _P, _P, _N, _I]
     lib.host_msm_affine.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _N]
     lib.host_msm_fixed.argtypes = [_P, _P, _I, _P, _P, _P, _N]
-    lib.host_miller_mixed.argtypes = [_P] * 6 + [_I, _P, _P, _P, _N]
+    lib.host_g2_lines.argtypes = [_P] * 5 + [_N]
+    lib.host_miller_mixed.argtypes = [_P] * 3 + [_I, _P, _P, _P, _N]
     lib.host_final_exp.argtypes = [_P, _P, _N]
     lib.host_miller_product.argtypes = [_P] * 4 + [_I, _P, _N]
     lib.host_msm_pippenger.argtypes = [_P] * 4 + [_I, _I, _I] + [_P] * 5 + [_N]
@@ -321,7 +329,8 @@ def load_host_check(rolled: bool = False) -> ctypes.CDLL:
     lib.host_plonk_smem_bytes.restype = _N
     lib.host_plonk_max_nb.argtypes = []
     for fn in ("host_mont_mul", "host_fq_inv", "host_g2_on_curve", "host_fq12_mul",
-               "host_msm_affine", "host_msm_fixed", "host_miller_mixed", "host_final_exp",
+               "host_msm_affine", "host_msm_fixed", "host_g2_lines", "host_miller_mixed",
+               "host_final_exp",
                "host_miller_product", "host_msm_pippenger", "host_pip_sort",
                "host_pip_buckets", "host_pip_reduce", "host_pip_combine", "host_sha256",
                "host_sha256_lead", "host_fr_inv",

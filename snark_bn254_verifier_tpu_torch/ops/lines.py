@@ -27,6 +27,12 @@ from .limbs import FQ
 # step where the bit is set, then the two Frobenius correction adds.
 MILLER_BITS = [int(c) for c in bin(bn.ATE_LOOP_COUNT)[2:]][1:]
 STEPS = len(MILLER_BITS)
+# A variable pair's lines in the order the Miller loop takes them (a
+# tangent a step, a chord where the bit is set, two corrections), each a
+# row (l00, l10, l11) of 2 x 8 32-bit words per coefficient: the rows
+# kernel g2_lines writes for K3 (ops/pairing_cuda.py::g2_lines).
+VAR_ROWS = STEPS + sum(MILLER_BITS) + 2
+LINE_ROW_WORDS = 3 * 2 * 8
 
 
 class G2LineTable(NamedTuple):

@@ -10,6 +10,9 @@ what the port's verifiers run:
     JAX package's (pairing.py:44-166, :441-458, :564-582), so the output is
     limb-equal to its ``miller_mixed_hostcall``, not just equal after the
     final exponentiation. Plain twin of kernel K3.
+  * ``var_line_rows`` — the variable pair's lines of that product,
+    evaluated at P, by the same steps: plain twin of kernel g2_lines,
+    which prepares them for K3.
   * ``final_exponentiation`` — f^((p^12-1)/r) by the x-chain
     (pairing.py:324-395 there): easy part, three cyclotomic
     exponentiations by x, then the digit combine. Written as plain Python
@@ -210,6 +213,49 @@ def miller_product_mixed(var_p, var_q, fixed_ps, lines, tails):
             f = _fixed_line_apply(f, tails[j, 0, k], tails[j, 1, k], fx, fy,
                                   finf)
     return f
+
+
+def _words32(x):
+    """(16, *s) 16-bit limbs -> (8, *s) int32 32-bit words (limb 2k low,
+    2k+1 high), the kernels' form in registers and shared memory."""
+    w = x[0::2].to(_I64) | (x[1::2].to(_I64) << 16)
+    return (w - ((w >> 31) << 32)).to(torch.int32)
+
+
+def var_line_rows(var_p, var_q):
+    """Plain twin of kernel g2_lines: the variable pair's Miller lines
+    evaluated at P, (l00, l10, l11) = (c0*yP, c1*xP, c3), in the order
+    ``miller_product_mixed`` multiplies them into f (per MILLER_BITS
+    iteration the tangent, then the chord where the bit is set, then the
+    two Frobenius corrections), by its own steps; (1, 0, 0) on lanes
+    where P or Q is at infinity. var_p, var_q as ``miller_product_mixed``'s.
+    Returns (VAR_ROWS, 3, 2, 8, *b) int32 32-bit words (ops/lines.py)."""
+    xp, yp = var_p[0].to(_I64), var_p[1].to(_I64)
+    q = (var_q[0].to(_I64), var_q[1].to(_I64))
+    skip = var_p[2] | var_q[2]
+    one = T.fq2_one(q[0].shape[2:], q[0])
+    zero = torch.zeros_like(one)
+    t = (q[0], q[1], one)
+    rows = []
+
+    def row(line):
+        c0, c1, c3 = line
+        l = (F.select(skip, one, T.fq2_mul_fq(c0, yp)), F.select(skip, zero, T.fq2_mul_fq(c1, xp)),
+             F.select(skip, zero, c3))
+        rows.append(torch.stack([_words32(v).movedim(1, 0) for v in l]))
+
+    for bit in MILLER_BITS:
+        t, line = _dbl_step(t)
+        row(line)
+        if bit:
+            t, line = _add_step(t, q)
+            row(line)
+    q1 = _g2_frobenius_affine(q, 1)
+    q2x, q2y = _g2_frobenius_affine(q, 2)
+    for qq in (q1, (q2x, T.fq2_neg(q2y))):
+        t, line = _add_step(t, qq)
+        row(line)
+    return torch.stack(rows)
 
 
 def miller_mixed(var_p, var_q, fixed_ps, lines, tails):

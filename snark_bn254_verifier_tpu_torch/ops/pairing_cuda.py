@@ -13,6 +13,8 @@ package's parallel/batch.py):
                   window tables (``fixed_base_table``): the Groth16
                   prepared input's MSM, in the batch and the single call
   miller_mixed    K3, replaces _miller_mixed_kernel
+  g2_lines        the G2 steps of _miller_mixed_kernel, apart: the variable
+                  pair's line rows, which K3 reads (launched by miller_mixed)
   final_exp       K4, replaces _fe_easy_expx_kernel + _fe_combine_kernel
   miller_product  K5, replaces _miller_kernel + _fq12_product_kernel
   msm_pippenger   K6, the bucket MSM of ops/msm.py, which is XLA in the
@@ -32,8 +34,9 @@ outputs with ``torch.empty``, launches on its tensors' device and that
 device's current stream, raises on a CUDA error and counts its launches
 in ``<wrapper>.launches``. No wrapper pads the batch: the kernels mask
 the ragged edge. g2_on_curve runs one thread per lane; K2-K5 and
-msm_fixed run on a team of threads per lane, at the shapes csrc/msm.cuh
-(K2), csrc/team.cuh (K3-K5) and csrc/msm_fixed.cuh fix; K6 is six
+msm_fixed and g2_lines run on a team of threads per lane, at the shapes
+csrc/msm.cuh (K2), csrc/team.cuh (K3-K5), csrc/msm_fixed.cuh and
+csrc/g2_lines.cuh fix; K6 is six
 launches (csrc/pippenger.cuh): a digit pass and a counting sort, the
 bucket sums over fixed chunks of all rows' entries, a thread a chunk,
 the merge of buckets split between chunks, a block per (lane, window)
@@ -55,7 +58,7 @@ from . import tower as T
 from ._build import load_kernels
 from ..utils.profiling import count
 from .field_cuda import expect as _expect, launch, mont_mul, on_cpu as _on_cpu
-from .lines import STEPS
+from .lines import LINE_ROW_WORDS, STEPS, VAR_ROWS
 from .limbs import FR, NUM_LIMBS
 from .plonk_cuda import plonk_lanes_a, plonk_lanes_b
 
@@ -64,7 +67,7 @@ from .plonk_cuda import plonk_lanes_a, plonk_lanes_b
 # of chip_smoke.py, so no kernel ships without an on-card check.
 KERNEL_ENTRY_POINTS = ("mont_mul", "g2_on_curve", "msm_affine", "miller_mixed",
                        "final_exp", "miller_product", "msm_pippenger", "plonk_lanes_a",
-                       "plonk_lanes_b", "msm_fixed")
+                       "plonk_lanes_b", "msm_fixed", "g2_lines")
 
 
 NF_MAX = 2  # fixed pairs whose line tables K3 stages in shared memory
@@ -190,16 +193,68 @@ def msm_fixed(table, scalars):
     return ox, oy, oinf
 
 
-def miller_mixed(var_p, var_q, fixed_ps, lines, tails):
+def line_rows_words(b: int) -> int:
+    """int32 words of the variable pair's line rows at batch b (g2_lines)."""
+    return VAR_ROWS * LINE_ROW_WORDS * b
+
+
+def g2_lines(var_p, var_q, out=None):
+    """The variable pair's Miller lines evaluated at P, in the order K3
+    multiplies them into f: var_p (x (16,B), y (16,B), inf (B,)) and var_q
+    (x (16,2,B), y (16,2,B), inf (B,)) affine, Montgomery limbs. Returns
+    (VAR_ROWS, 3, 2, 8, B) int32 32-bit words (ops/lines.py), the line
+    (1, 0, 0) in every row of a lane where P or Q is at infinity. On CUDA
+    tensors ``out``, if given, is a flat int32 buffer of at least
+    ``line_rows_words(B)`` words on their device that holds the rows (a
+    ring slot's, reused from batch to batch); its first words are
+    returned as the rows' view."""
+    tensors = list(var_p) + list(var_q)
+    if _on_cpu(*tensors):
+        return PR.var_line_rows(var_p, var_q)
+    b = var_p[0].shape[-1]
+    _expect("var_p.x", var_p[0], (NUM_LIMBS, b))
+    _expect("var_p.y", var_p[1], (NUM_LIMBS, b))
+    _expect("var_q.x", var_q[0], (NUM_LIMBS, 2, b))
+    _expect("var_q.y", var_q[1], (NUM_LIMBS, 2, b))
+    _expect("var_p.inf", var_p[2], (b,), torch.bool)
+    _expect("var_q.inf", var_q[2], (b,), torch.bool)
+    skip = var_p[2] | var_q[2]
+    px, py, qx, qy = (_zero_masked(t, skip) for t in (var_p[0], var_p[1], var_q[0], var_q[1]))
+    shape = (VAR_ROWS, 3, 2, 8, b)
+    if out is None:
+        rows = torch.empty(shape, dtype=torch.int32, device=px.device)
+    else:
+        if (out.device != px.device or out.dtype != torch.int32 or not out.is_contiguous()
+                or out.numel() < line_rows_words(b)):
+            raise ValueError(f"g2_lines: out must be a contiguous int32 buffer of at least "
+                             f"{line_rows_words(b)} words on {px.device}")
+        rows = out.view(-1)[:line_rows_words(b)].view(shape)
+    if b == 0:
+        return rows
+    launch(rows.device, "bn_g2_lines", px.data_ptr(), py.data_ptr(), qx.data_ptr(),
+           qy.data_ptr(), rows.data_ptr(), b)
+    g2_lines.launches += 1
+    return rows
+
+
+def miller_mixed(var_p, var_q, fixed_ps, lines, tails, *, rows=None):
     """Mixed Miller product: the optional variable pair (var_p, var_q as
     affine (x, y, inf) tuples, G2 coords (16,2,B)) times nf VK-fixed pairs
     (fixed_ps: affine G1 tuples) with line tables lines (nf,4,STEPS,16,2)
     and tails (nf,2,2,16,2) (ops/lines.py::tables_from_numpy). Returns the
-    (16,12,B) int32 Miller value."""
+    (16,12,B) int32 Miller value.
+
+    On CUDA tensors a variable pair's lines are prepared first by
+    ``g2_lines`` (into ``rows``, a buffer as its ``out``, if given), then
+    K3 multiplies them into f on the same stream; with no variable pair
+    K3 runs alone. Counts the lanes of a variable pair in the program
+    counter ``bn254.pairing.prepared_lanes``, on either device (the CPU's
+    plain twin runs the pair's steps itself)."""
     has_var = var_p is not None
     tensors = [t for p in fixed_ps for t in p] + [lines, tails]
     if has_var:
         tensors += list(var_p) + list(var_q)
+        count("bn254.pairing.prepared_lanes", var_p[0].shape[-1])
     if _on_cpu(*tensors):
         return PR.miller_mixed(var_p, var_q, fixed_ps, lines, tails)
     nf = len(fixed_ps)
@@ -218,22 +273,15 @@ def miller_mixed(var_p, var_q, fixed_ps, lines, tails):
         fpy = torch.stack([_zero_masked(y, inf) for _, y, inf in fixed_ps])
     else:
         fpx = fpy = torch.empty((0, NUM_LIMBS, b), dtype=torch.int32, device=dev)
-    var = [None] * 4
     if has_var:
         _expect("var_p.x", var_p[0], (NUM_LIMBS, b))
-        _expect("var_p.y", var_p[1], (NUM_LIMBS, b))
-        _expect("var_q.x", var_q[0], (NUM_LIMBS, 2, b))
-        _expect("var_q.y", var_q[1], (NUM_LIMBS, 2, b))
-        skip = var_p[2] | var_q[2]
-        var = [_zero_masked(t, skip)
-               for t in (var_p[0], var_p[1], var_q[0], var_q[1])]
     lines, tails = lines.contiguous(), tails.contiguous()
     out = torch.empty((NUM_LIMBS, 12, b), dtype=torch.int32, device=dev)
     if b == 0:
         return out
-    launch(dev, "bn_miller_mixed", *[t.data_ptr() if t is not None else None for t in var],
-           fpx.data_ptr(), fpy.data_ptr(), nf, lines.data_ptr(), tails.data_ptr(),
-           out.data_ptr(), b)
+    vrows = g2_lines(var_p, var_q, out=rows) if has_var else None
+    launch(dev, "bn_miller_mixed", vrows.data_ptr() if has_var else None, fpx.data_ptr(),
+           fpy.data_ptr(), nf, lines.data_ptr(), tails.data_ptr(), out.data_ptr(), b)
     miller_mixed.launches += 1
     return out
 
@@ -395,11 +443,13 @@ final_exp.launches = 0
 miller_product.launches = 0
 msm_pippenger.launches = 0
 msm_fixed.launches = 0
+g2_lines.launches = 0
 
 __all__ = ["KERNEL_ENTRY_POINTS", "mont_mul", "g2_on_curve", "msm_affine", "miller_mixed",
            "final_exp", "miller_product", "msm_pippenger", "msm_pippenger_windows",
            "msm_pippenger_combine", "plonk_lanes_a", "plonk_lanes_b", "fixed_base_table",
-           "msm_fixed", "launch_counts", "reset_launch_counts"]
+           "msm_fixed", "g2_lines", "line_rows_words", "launch_counts",
+           "reset_launch_counts"]
 
 
 def pairing(p_affine, q_affine):

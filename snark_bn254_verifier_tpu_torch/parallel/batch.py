@@ -17,8 +17,10 @@ Groth16, per batch:
      the window table of k0..kn that the constructor builds once
      (ops/pairing_cuda.py::fixed_base_table), where the VK has at most
      ops/msm.py::FIXED_MAX_POINTS points; past that through msm_best;
-  4. the mixed Miller product of e(A, B), e(L, gamma), e(C, -delta),
-     kernel K3, then the final exponentiation, kernel K4;
+  4. the mixed Miller product of e(A, B), e(L, gamma), e(C, -delta):
+     kernel g2_lines prepares the lines of (A, B) into the ring slot's
+     buffer, kernel K3 multiplies them and the VK's tables into f; then
+     the final exponentiation, kernel K4;
   5. the Gt compare against e(alpha, beta), ANDed with the validity mask.
 
 As in the JAX package, B is checked to be on the curve but not to be in
@@ -175,13 +177,25 @@ class _Stages:
 
 
 class _Slot:
-    """One stream of a ``_Ring``, its pinned staging buffer (kept from
-    batch to batch, grown when short), and its latest batch's end event."""
+    """One stream of a ``_Ring``, its pinned staging buffer and its buffer
+    of K3's variable line rows (each kept from batch to batch, grown when
+    short), and its latest batch's end event."""
 
     def __init__(self, device: torch.device):
         self.stream = torch.cuda.Stream(device)
         self.staging = torch.empty(0, dtype=torch.uint8)
+        self.rows = torch.empty(0, dtype=torch.int32)
         self.end: Optional[torch.cuda.Event] = None
+
+    def line_rows(self, b: int) -> torch.Tensor:
+        """The slot's buffer for a batch of b lanes' variable line rows
+        (ops/pairing_cuda.py::g2_lines), allocated on the slot's stream
+        (the current one) when short. The slot's last batch, the only
+        other user, has ended when the slot is handed out."""
+        need = PC.line_rows_words(b)
+        if self.rows.numel() < need:
+            self.rows = torch.empty(need, dtype=torch.int32, device=self.stream.device)
+        return self.rows
 
     def mark_end(self) -> torch.cuda.Event:
         """Record the end of the work queued on the slot's stream so far,
@@ -536,7 +550,8 @@ class Groth16BatchVerifier(_Flights):
                     prepared = M.msm_best(
                         tuple(v.expand(v.shape[:-1] + (b,)) for v in self._k_points), sc)
                 stages.device("msm_ms")
-                f = PC.miller_mixed(ar, bs, (prepared, krs), lines, tails)
+                rows = slot.line_rows(b) if slot is not None else None
+                f = PC.miller_mixed(ar, bs, (prepared, krs), lines, tails, rows=rows)
                 stages.device("miller_ms")
                 gt = PC.final_exp(f)
                 stages.device("final_exp_ms")

@@ -1,4 +1,4 @@
-"""Time variants of the team kernels, K6 and K7 against the built ones, on one card.
+"""Time variants of the team kernels, g2_lines, K6 and K7 against the built ones, on one card.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -22,6 +22,7 @@ this tool only rewrites copies of them.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import random
 import shutil
@@ -49,8 +50,11 @@ K6_BULK = ("pippenger.cu", ("-DBN_PIP_COMBINE=0",))  # K6's stages 1-5 (pippenge
 KERNEL_UNIT = {"msm_affine": _build.team_unit(2), "miller_mixed": _build.team_unit(3),
                "final_exp": _build.team_unit(4), "miller_product": _build.team_unit(5),
                "msm_pippenger": K6_BULK, "plonk_lanes_a": ("plonk_kernels.cu", ()),
-               "plonk_lanes_b": ("plonk_kernels.cu", ())}
+               "plonk_lanes_b": ("plonk_kernels.cu", ()), "g2_lines": ("g2_lines.cu", ())}
 K7 = KERNEL_UNIT["plonk_lanes_a"]
+GL = KERNEL_UNIT["g2_lines"]
+_GL_SHAPE = "#define GL_TEAM 8\n#define GL_LPB 16"
+_MM_SHAPE = "#define MM_TEAM 18  // K3\n#define MM_LPB 8"
 T2, T3, T4, T5 = (_build.team_unit(k) for k in (2, 3, 4, 5))
 
 # (name, units rebuilt, {file: [(old, new)]}, exact); "base" is the main
@@ -122,6 +126,28 @@ _K2_SHARED_CHAIN = """\
   TEAM_SYNC();
 """
 VARIANTS = [
+    # g2_lines: one thread a lane, or teams of 4, 8 (the kept shape, at
+    # 16 lanes a block) and 16 threads; its products unrolled
+    ("g2_lines 1x32", (GL,), {"g2_lines.cuh": [
+        (_GL_SHAPE, "#define GL_TEAM 1\n#define GL_LPB 32")]}, True),
+    ("g2_lines 4x32", (GL,), {"g2_lines.cuh": [
+        (_GL_SHAPE, "#define GL_TEAM 4\n#define GL_LPB 32")]}, True),
+    ("g2_lines 8x8", (GL,), {"g2_lines.cuh": [
+        (_GL_SHAPE, "#define GL_TEAM 8\n#define GL_LPB 8")]}, True),
+    ("g2_lines 16x8", (GL,), {"g2_lines.cuh": [
+        (_GL_SHAPE, "#define GL_TEAM 16\n#define GL_LPB 8")]}, True),
+    ("g2_lines unrolled CIOS", (GL,), {"g2_lines.cu": [
+        ("#define BN_ROLLED_CIOS 1", "#define BN_ROLLED_CIOS 0")]}, True),
+    # K3 with its team's G2 slots gone: lanes a block (8 kept) and team
+    # size again
+    ("K3 18x2", (T3,), {"team.cuh": [(_MM_SHAPE, "#define MM_TEAM 18  // K3\n#define MM_LPB 2")]},
+     True),
+    ("K3 18x4", (T3,), {"team.cuh": [(_MM_SHAPE, "#define MM_TEAM 18  // K3\n#define MM_LPB 4")]},
+     True),
+    ("K3 12x4", (T3,), {"team.cuh": [(_MM_SHAPE, "#define MM_TEAM 12  // K3\n#define MM_LPB 4")]},
+     True),
+    ("K3 12x8", (T3,), {"team.cuh": [(_MM_SHAPE, "#define MM_TEAM 12  // K3\n#define MM_LPB 8")]},
+     True),
     ("K5 12x4x1", (T5,), {"team.cuh": [("#define MP_TEAM 18", "#define MP_TEAM 12")]}, True),
     ("K5 18x4x2", (T5,), {"team.cuh": [("#define MP_LPB 1", "#define MP_LPB 2")]}, True),
     ("K2 16x1", (T2,), {"msm.cuh": [("#define MSM_LPB 2", "#define MSM_LPB 1")]}, True),
@@ -271,7 +297,14 @@ def cases(seed: int = 0):
     vp, vq = on(pack_g1([g1[rng.randrange(8)] for _ in range(b)])), \
         on(pack_g2([g2[rng.randrange(4)] for _ in range(b)]))
     f = PC.miller_mixed(vp, vq, fixed, lines, tails)
+    b2 = 2048  # the Groth16 batch cell's lanes
+    vp2, vq2 = on(pack_g1([g1[rng.randrange(8)] for _ in range(b2)])), \
+        on(pack_g2([g2[rng.randrange(4)] for _ in range(b2)]))
+    fixed2 = tuple(on(pack_g1([g1[rng.randrange(8)] for _ in range(b2)])) for _ in range(2))
+    rows2 = PC.g2_lines(vp2, vq2)
     return [
+        ("g2_lines", "B=1024", lambda: PC.g2_lines(vp, vq)),
+        ("g2_lines", "B=2048", lambda: PC.g2_lines(vp2, vq2, out=rows2)),
         ("msm_affine", "B=1 n=11", msm(11, 1)),
         ("msm_affine", "B=1 n=1", msm(1, 1)),
         ("msm_affine", "B=1024 n=3", msm(3, b)),
@@ -279,6 +312,10 @@ def cases(seed: int = 0):
         ("miller_product", "B=1 n=2", pairs(2, 1)),
         ("miller_product", "B=1024 n=3", pairs(3, b)),
         ("miller_mixed", "B=1024", lambda: PC.miller_mixed(vp, vq, fixed, lines, tails)),
+        ("miller_mixed", "B=2048", lambda: PC.miller_mixed(vp2, vq2, fixed2, lines, tails,
+                                                           rows=rows2)),
+        ("miller_mixed", "fixed-only B=1024", lambda: PC.miller_mixed(None, None, fixed, lines,
+                                                                      tails)),
         ("final_exp", "B=1", lambda: PC.final_exp(f[:, :, :1].contiguous())),
         ("final_exp", "B=1024", lambda: PC.final_exp(f)),
         ("msm_pippenger", "B=1 n=2^16", pippenger(1 << 16, 1)),
@@ -401,9 +438,16 @@ def main() -> int:
                 f"{n} {min(times[n]):.3f}" for n in names) + " ms (best of turns)")
     finally:
         send_launches(real_launch)
-    for name, (_, log) in libs.items():
+    for name, (lib, log) in libs.items():
+        occupancy = {}
+        for kernel in ("miller_mixed", "g2_lines"):
+            if KERNEL_UNIT[kernel] in units[name]:
+                blocks = ctypes.c_int()
+                _build.check(lib, getattr(lib, f"bn_{kernel}_occupancy")(ctypes.byref(blocks)),
+                             f"bn_{kernel}_occupancy")
+                occupancy[kernel] = blocks.value
         print(json.dumps({"variant": name, "exact": exact.get(name, True), "ms": results[name],
-                          "ptxas": log}))
+                          "blocks_per_sm": occupancy, "ptxas": log}))
     print(smi)
     return 0
 

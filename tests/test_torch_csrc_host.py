@@ -3,7 +3,8 @@ the host C++ compiler into a test-only library (csrc/host_check.cc) and run
 against the oracle and the plain twins, the team kernels with one host
 thread per team thread. Covers the 16<->32-bit limb conversion, the 32-bit
 CIOS, the fused K1's G2 on-curve mask, the teams' Fq12 product, K2's MSM
-team, the fixed-base MSM's team, final_exp(miller_mixed), K5's Miller-product team, K6's six
+team, the fixed-base MSM's team, final_exp(miller_mixed) over g2_lines'
+rows (tests/test_torch_g2_lines.py has g2_lines' own), K5's Miller-product team, K6's six
 stages (the counting sort, the chunked bucket sums and their merge, the
 window sums, the combine of k sets), and K7's blocks stage by stage with
 its divsteps inverse, without a card, each kernel's code with the form of
@@ -12,7 +13,6 @@ compiler is installed."""
 
 import ctypes
 import random
-import shutil
 
 import numpy as np
 import pytest
@@ -32,14 +32,7 @@ from snark_bn254_verifier_tpu_torch.models.packing import (
 from snark_bn254_verifier_tpu_torch.ops import field as F
 from snark_bn254_verifier_tpu_torch.ops import lines as LN
 from snark_bn254_verifier_tpu_torch.ops.limbs import FQ, FR
-
-
-def host_check(rolled):
-    if shutil.which("g++") is None and shutil.which("c++") is None:
-        pytest.skip("no host C++ compiler")
-    from snark_bn254_verifier_tpu_torch.ops import _build
-
-    return _build.load_host_check(rolled)
+from torch_host_build import c_tensor, host_check, host_miller_mixed, ptr
 
 
 @pytest.fixture(scope="module")
@@ -50,16 +43,8 @@ def lib():
 
 @pytest.fixture(scope="module")
 def lib_rolled():
-    """Built with the rolled Montgomery product, K2's and K5's."""
+    """Built with the rolled Montgomery product, K2's, K5's and g2_lines'."""
     return host_check(True)
-
-
-def ptr(t):
-    return t.data_ptr()
-
-
-def c_tensor(x):
-    return torch.as_tensor(np.ascontiguousarray(x)).contiguous()
 
 
 @pytest.mark.parametrize("rolled", [0, 1])
@@ -172,7 +157,8 @@ def test_msm_affine_lane_matches_oracle(lib_rolled):
 
 
 def test_final_exp_of_miller_mixed_lane_matches_oracle(lib):
-    """K3 then K4, each on its team, for one lane (a ragged block)."""
+    """g2_lines, K3 over its rows, then K4, each on its team, for one lane
+    (a ragged block)."""
     rng = random.Random(54)
     q_fixed = [bn.g2_mul(bn.G2_GEN, rng.randrange(1, bn.R)) for _ in range(2)]
     lines, tails = LN.tables_from_numpy([LN.g2_line_table(q) for q in q_fixed])
@@ -180,14 +166,10 @@ def test_final_exp_of_miller_mixed_lane_matches_oracle(lib):
     fixed = [bn.g1_mul(bn.G1_GEN, rng.randrange(1, bn.R)) for _ in range(2)]
     vp = bn.g1_mul(bn.G1_GEN, rng.randrange(1, bn.R))
     vq = bn.g2_mul(bn.G2_GEN, rng.randrange(1, bn.R))
-    px, py, _ = (c_tensor(a) for a in pack_g1([vp]))
-    qx, qy, _ = (c_tensor(a) for a in pack_g2([vq]))
-    fp = [pack_g1([p]) for p in fixed]
-    fpx = c_tensor(np.stack([p[0] for p in fp]))
-    fpy = c_tensor(np.stack([p[1] for p in fp]))
-    f = torch.empty((16, 12, 1), dtype=torch.int32)
-    assert lib.host_miller_mixed(ptr(px), ptr(py), ptr(qx), ptr(qy), ptr(fpx), ptr(fpy),
-                                 2, ptr(lines), ptr(tails), ptr(f), 1) == 0
+    var_p = tuple(c_tensor(a) for a in pack_g1([vp]))
+    var_q = tuple(c_tensor(a) for a in pack_g2([vq]))
+    fp = tuple(tuple(c_tensor(a) for a in pack_g1([p])) for p in fixed)
+    f = host_miller_mixed(lib, var_p, var_q, fp, lines, tails)
     gt = torch.empty_like(f)
     assert lib.host_final_exp(ptr(f), ptr(gt), 1) == 0
     want = bn.pairing_batch([(fixed[0], q_fixed[0]), (fixed[1], q_fixed[1]), (vp, vq)])
@@ -223,8 +205,8 @@ def test_msm_affine_lane_combines_point_groups(lib_rolled):
 def test_miller_mixed_lanes_with_infinite_pairs_equal_plain_twin(lib, n):
     """Infinite pairs go through the same calls as the others, with the
     line (1, 0, 0): the Miller value stays limb-equal to the plain twin.
-    ``n`` lanes in blocks of MM_LPB = 4: one full block, then (n = 6) a
-    ragged one."""
+    ``n`` lanes, a ragged block of MM_LPB = 8 (full and ragged blocks:
+    tests/test_torch_g2_lines.py)."""
     from snark_bn254_verifier_tpu_torch.ops import pairing as PR
 
     rng = random.Random(56)
@@ -243,16 +225,7 @@ def test_miller_mixed_lanes_with_infinite_pairs_equal_plain_twin(lib, n):
     var_p, var_q = tuple(var_p), tuple(var_q)
     fixed = tuple(tuple(c_tensor(a) for a in pack_g1(l)) for l in fl)
     want = PR.miller_mixed(var_p, var_q, fixed, lines, tails)
-    # the kernel's inputs: infinite lanes zeroed (as ops/pairing_cuda.py does)
-    skip = var_p[2] | var_q[2]
-    px, py = (torch.where(skip, 0, t).contiguous() for t in var_p[:2])
-    qx, qy = (torch.where(skip, 0, t).contiguous() for t in var_q[:2])
-    fpx = c_tensor(torch.stack([torch.where(inf, 0, x) for x, _, inf in fixed]))
-    fpy = c_tensor(torch.stack([torch.where(inf, 0, y) for _, y, inf in fixed]))
-    f = torch.empty((16, 12, n), dtype=torch.int32)
-    assert lib.host_miller_mixed(ptr(px), ptr(py), ptr(qx), ptr(qy), ptr(fpx), ptr(fpy),
-                                 2, ptr(lines), ptr(tails), ptr(f), n) == 0
-    assert torch.equal(f, want)
+    assert torch.equal(host_miller_mixed(lib, var_p, var_q, fixed, lines, tails), want)
 
 
 def test_miller_product_lanes_with_infinite_pairs_equal_plain_twin(lib_rolled):
@@ -299,8 +272,8 @@ def test_miller_product_lanes_with_infinite_pairs_equal_plain_twin(lib_rolled):
 @pytest.mark.parametrize("n", [3, 5])
 def test_miller_mixed_fixed_only_equals_plain_twin(lib, n):
     """K3 with no variable pair (PlonK's shape): null pointers for it, two
-    fixed pairs, one of them at infinity on lane 1. ``n`` lanes: a ragged
-    block alone, or after a full one."""
+    fixed pairs, one of them at infinity on lane 1. ``n`` lanes in a
+    ragged block of MM_LPB = 8."""
     from snark_bn254_verifier_tpu_torch.ops import pairing as PR
 
     rng = random.Random(58)
@@ -312,12 +285,7 @@ def test_miller_mixed_fixed_only_equals_plain_twin(lib, n):
           [[g1[1], g1[2], g1[0]][i % 3] for i in range(n)]]
     fixed = tuple(tuple(c_tensor(a) for a in pack_g1(l)) for l in fl)
     want = PR.miller_mixed(None, None, fixed, lines, tails)
-    fpx = c_tensor(torch.stack([torch.where(inf, 0, x) for x, _, inf in fixed]))
-    fpy = c_tensor(torch.stack([torch.where(inf, 0, y) for _, y, inf in fixed]))
-    f = torch.empty((16, 12, n), dtype=torch.int32)
-    assert lib.host_miller_mixed(None, None, None, None, ptr(fpx), ptr(fpy), 2, ptr(lines),
-                                 ptr(tails), ptr(f), n) == 0
-    assert torch.equal(f, want)
+    assert torch.equal(host_miller_mixed(lib, None, None, fixed, lines, tails), want)
 
 
 @pytest.mark.parametrize("n", [4, 9])

@@ -161,7 +161,7 @@ def test_miller_product_team_ragged_and_one_lane(cuda, n, b):
 
 @pytest.mark.parametrize("b", [B, B + 3])
 def test_miller_and_final_exp_kernels_equal_plain(cuda, b):
-    """K3 (4 lanes per block) and K4 (8): at B + 3 lanes the last block of
+    """K3 (8 lanes per block) and K4 (8): at B + 3 lanes the last block of
     each is ragged."""
     rng = random.Random(63)
     q_fixed = [bn.g2_mul(bn.G2_GEN, rng.randrange(1, bn.R)) for _ in range(2)]
@@ -177,6 +177,51 @@ def test_miller_and_final_exp_kernels_equal_plain(cuda, b):
     assert torch.equal(PC.final_exp(f), PR.final_exp(f))
 
 
+@pytest.mark.parametrize("b", [2048, 33, 1])
+def test_miller_mixed_with_variable_pair_equals_plain(cuda, b):
+    """The Groth16 batch's K3 call: g2_lines prepares the variable pair's
+    rows, then K3 multiplies them (one launch each), exact against the
+    plain twins (run on the card), at the batch cell's 2048 lanes, a
+    ragged 33 and one lane; P at infinity on lane 0 and Q on lane 1 where
+    there are two; the rows in a buffer longer than they need."""
+    rng = random.Random(68)
+    q_fixed = [bn.g2_mul(bn.G2_GEN, rng.randrange(1, bn.R)) for _ in range(2)]
+    lines, tails = LN.tables_from_numpy([LN.g2_line_table(q) for q in q_fixed], cuda)
+    pool = points(rng, 4)
+    q_pool = [bn.g2_mul(bn.G2_GEN, rng.randrange(1, bn.R)) for _ in range(2)]
+    fixed = tuple(on(cuda, pack_g1([pool[(i + j) % 4] for i in range(b)])) for j in range(2))
+    vp = on(cuda, pack_g1([pool[(i + 2) % 4] if i or b == 1 else None for i in range(b)]))
+    vq = on(cuda, pack_g2([q_pool[i % 2] if i != 1 else None for i in range(b)]))
+    rows = torch.empty(PC.line_rows_words(b) + 5, dtype=torch.int32, device=cuda)
+    PC.reset_launch_counts()
+    f = PC.miller_mixed(vp, vq, fixed, lines, tails, rows=rows)
+    launches = PC.launch_counts()
+    assert launches["g2_lines"] == 1 and launches["miller_mixed"] == 1
+    assert torch.equal(f, PR.miller_mixed(vp, vq, fixed, lines, tails))  # twins on the card
+    prepared = rows[:PC.line_rows_words(b)].view(LN.VAR_ROWS, 3, 2, 8, b)
+    assert torch.equal(prepared, PR.var_line_rows(vp, vq))
+
+
+def test_prepared_lanes_count_the_groth16_batch_lanes_on_cuda(cuda, tmp_path):
+    """``bn254.pairing.prepared_lanes`` under profiling.trace: the lanes of
+    one Groth16 batch, none after a PlonK batch."""
+    from snark_bn254_verifier_tpu_torch.utils import profiling
+
+    vec = gen_groth16_vector(0)
+    ver = Groth16BatchVerifier(vec.vk, device="cuda")
+    proofs, inputs = [vec.proof] * B, [list(vec.public_inputs)] * B
+    ver.verify_batch(proofs, inputs)  # the VK's set-up, outside the trace
+    with profiling.trace(str(tmp_path / "g16.json")):
+        assert ver.verify_batch(proofs, inputs).all()
+    assert profiling.snapshot()["counters"]["bn254.pairing.prepared_lanes"] == B
+    pvec, pproofs, pinputs, expected = plonk_batch_lanes(4, {})
+    pver = PlonkBatchVerifier(pvec.vk, device="cuda")
+    pver.verify_batch(pproofs, pinputs)
+    with profiling.trace(str(tmp_path / "plonk.json")):
+        assert pver.verify_batch(pproofs, pinputs).tolist() == expected
+    assert "bn254.pairing.prepared_lanes" not in profiling.snapshot()["counters"]
+
+
 def test_slice_on_cuda(cuda):
     vec = gen_groth16_vector(0)
     proofs = [vec.proof] * B
@@ -186,7 +231,7 @@ def test_slice_on_cuda(cuda):
     ok = Groth16BatchVerifier(vec.vk, device="cuda").verify_batch(proofs, inputs)
     assert ok.tolist() == [i != 3 for i in range(B)]
     launches = PC.launch_counts()
-    assert all(launches[k] > 0 for k in ("msm_fixed", "miller_mixed", "final_exp"))
+    assert all(launches[k] > 0 for k in ("msm_fixed", "g2_lines", "miller_mixed", "final_exp"))
     assert launches["g2_on_curve"] == 1 and launches["mont_mul"] == 0
 
 
@@ -205,7 +250,7 @@ def test_plonk_batch_on_cuda(cuda):
     assert PC.launch_counts() == {"mont_mul": 0, "g2_on_curve": 0, "msm_affine": 3,
                                   "miller_mixed": 1, "final_exp": 1, "miller_product": 0,
                                   "msm_pippenger": 0, "plonk_lanes_a": 1, "plonk_lanes_b": 1,
-                                  "msm_fixed": 0}
+                                  "msm_fixed": 0, "g2_lines": 0}
     cpu = PlonkBatchVerifier(vec.vk, device="cpu").verify_batch(proofs[:8], inputs[:8])
     assert cpu.tolist() == ok[:8].tolist()
 
@@ -298,8 +343,9 @@ def test_torch_backend_msm_large_on_cuda(cuda):
 def test_verify_batch_async_pipelined_on_cuda(cuda):
     """Groth16 and PlonK batches, two in flight on their streams: the exact
     bools on every batch, and per batch one launch each of g2_on_curve,
-    msm_fixed, miller_mixed and final_exp (Groth16), three msm_affine, one
-    miller_mixed, one final_exp and one each of K7a and K7b (PlonK)."""
+    msm_fixed, g2_lines, miller_mixed and final_exp (Groth16), three
+    msm_affine, one miller_mixed, one final_exp and one each of K7a and K7b
+    (PlonK)."""
     from snark_bn254_verifier_tpu_torch.fixtures.groth16_lanes import groth16_batch_lanes
 
     vec, proofs, inputs, expected = groth16_batch_lanes(B)
@@ -316,7 +362,7 @@ def test_verify_batch_async_pipelined_on_cuda(cuda):
     assert PC.launch_counts() == {"mont_mul": 0, "g2_on_curve": n, "msm_affine": 0,
                                   "miller_mixed": n, "final_exp": n, "miller_product": 0,
                                   "msm_pippenger": 0, "plonk_lanes_a": 0, "plonk_lanes_b": 0,
-                                  "msm_fixed": n}
+                                  "msm_fixed": n, "g2_lines": n}
 
     bad = {3 + 2 * k: kind for k, kind in enumerate(KINDS)}
     vec, proofs, inputs, expected = plonk_batch_lanes(B, bad)
@@ -330,7 +376,7 @@ def test_verify_batch_async_pipelined_on_cuda(cuda):
     assert PC.launch_counts() == {"mont_mul": 0, "g2_on_curve": 0, "msm_affine": 9,
                                   "miller_mixed": 3, "final_exp": 3, "miller_product": 0,
                                   "msm_pippenger": 0, "plonk_lanes_a": 3, "plonk_lanes_b": 3,
-                                  "msm_fixed": 0}
+                                  "msm_fixed": 0, "g2_lines": 0}
 
 
 def plonk_lanes_kernels_against_twins(cuda, b, n_bsb22=1):

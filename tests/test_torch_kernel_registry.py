@@ -62,9 +62,27 @@ def test_chip_smoke_paths_launch_every_kernel():
     assert set(smoke.PLONK_BATCH_KERNELS) == {"msm_affine", "miller_mixed", "final_exp",
                                               "plonk_lanes_a", "plonk_lanes_b"}
     # the Groth16 prepared input is fixed-base in the batch and the single
-    # call; K2 stays for the PlonK paths
-    assert set(smoke.SLICE_KERNELS) == {"g2_on_curve", "msm_fixed", "miller_mixed", "final_exp"}
+    # call; K2 stays for the PlonK paths; the batch's variable pair's lines
+    # are prepared by g2_lines for K3
+    assert set(smoke.SLICE_KERNELS) == {"g2_on_curve", "msm_fixed", "g2_lines", "miller_mixed",
+                                        "final_exp"}
     assert {"msm_fixed", "msm_affine"} <= set(smoke.SINGLE_KERNELS)
+
+
+def test_g2_lines_is_a_unit_of_its_own_and_k5_keeps_its_g2_steps():
+    """g2_lines builds from g2_lines.cu beside K3's unit; K3's team runs no
+    G2 step (it reads g2_lines' rows), while K5's still runs them."""
+    from snark_bn254_verifier_tpu_torch.ops import _build
+
+    csrc = REPO / "snark_bn254_verifier_tpu_torch" / "csrc"
+    assert ("g2_lines.cu", ()) in _build.UNITS and _build.team_unit(3) in _build.UNITS
+    assert '#include "g2_lines.cuh"' in (csrc / "g2_lines.cu").read_text()
+    team = (csrc / "team.cuh").read_text()
+    k3 = team[team.index("BN_INLINE void miller_mixed_team("):team.index("// ---", team.index(
+        "BN_INLINE void miller_mixed_team("))]
+    k5 = team[team.index("BN_INLINE void miller_product_team("):]
+    assert "team_dbl_step" not in k3 and "team_miller(" not in k3 and "mm_fetch_rows" in k3
+    assert "team_miller(t, f, scratch, G, true, nullptr, 0)" in k5
 
 
 def test_msm_fixed_is_a_unit_of_its_own():

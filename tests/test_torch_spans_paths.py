@@ -9,7 +9,8 @@ table, the Miller products, the final exponentiation, the single call's
 pairings) are stood in by results of their shapes: the verdicts are not
 under test here, and the profiler would otherwise record the twins'
 millions of tensor ops. The wrappers around them stay, so the fixed-base
-MSM's lanes are counted where the program counts them."""
+MSM's lanes and the Miller product's prepared lanes are counted where the
+program counts them."""
 
 import hashlib
 import importlib.util
@@ -27,6 +28,7 @@ from snark_bn254_verifier_tpu_torch.fixtures.groth16_lanes import groth16_batch_
 from snark_bn254_verifier_tpu_torch.fixtures.plonk_lanes import plonk_batch_lanes
 from snark_bn254_verifier_tpu_torch.models.packing import pack_g1
 from snark_bn254_verifier_tpu_torch.ops import msm as M
+from snark_bn254_verifier_tpu_torch.ops import pairing as PR
 from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
 from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
 from snark_bn254_verifier_tpu_torch.utils import errors, profiling
@@ -70,7 +72,7 @@ def light(monkeypatch):
     monkeypatch.setattr(M, "msm_best", msm_best)
     monkeypatch.setattr(M, "fixed_table_plain", table)
     monkeypatch.setattr(M, "msm_fixed_plain", lambda table, scalars: gens(scalars.shape[-1]))
-    monkeypatch.setattr(PC, "miller_mixed", lambda p, q, fixed, *tables: fq12(
+    monkeypatch.setattr(PR, "miller_mixed", lambda p, q, fixed, *tables: fq12(
         fixed[0][0].shape[-1]))
     monkeypatch.setattr(PC, "final_exp", lambda f: f)
     monkeypatch.setattr(PC, "pairing_batch", lambda ps, qs: fq12(ps[0].shape[-1]))
@@ -120,7 +122,8 @@ def test_groth16_batch_spans_and_counters(light, sync):
     assert parents(snap) == BATCH_SPANS  # no ring on the CPU: no wait
     assert all(s["count"] == 1 for s in snap["spans"].values())
     assert snap["counters"] == {"bn254.batch.lanes": 12, "bn254.batch.host_rejects": 2,
-                                "bn254.msm.fixed_lanes": 12}
+                                "bn254.msm.fixed_lanes": 12,
+                                "bn254.pairing.prepared_lanes": 12}
     d = snap["spans"]["bn254.batch.dispatch"]
     children = sum(snap["spans"][n]["total_s"] for n, parent in BATCH_SPANS.items() if parent)
     assert d["total_s"] == pytest.approx(d["self_s"] + children, rel=1e-6)
@@ -143,7 +146,8 @@ def test_a_ragged_groth16_batch_counts_one_python_parse(light):
     assert parents(snap) == BATCH_SPANS
     assert snap["counters"] == {"bn254.batch.lanes": 4, "bn254.batch.host_rejects": 2,
                                 "bn254.batch.python_parse": 1,  # lanes 1 and 3
-                                "bn254.msm.fixed_lanes": 4}
+                                "bn254.msm.fixed_lanes": 4,
+                                "bn254.pairing.prepared_lanes": 4}
 
 
 def test_plonk_batch_spans_and_counters(light):
@@ -229,6 +233,30 @@ def test_fixed_lanes_count_the_lanes_that_took_msm_fixed(light, monkeypatch, tmp
     assert profiling.snapshot()["counters"].get("bn254.msm.fixed_lanes") == (
         None if past else want)
     assert len(light) == {"plonk_batch": 3}.get(path, 1 if past else 0)
+
+
+@pytest.mark.parametrize("path", ["groth16_batch", "groth16_single", "plonk_batch"])
+def test_prepared_lanes_count_the_groth16_batch_lanes(light, tmp_path, path):
+    """``bn254.pairing.prepared_lanes`` under profiling.trace: a Groth16
+    batch counts every lane (its variable pair (A, B), whose lines
+    g2_lines prepares for K3 on the card); the single call (K5) and a
+    PlonK batch (K3 with no variable pair) count none."""
+    if path == "groth16_batch":
+        vec, proofs, inputs, _ = groth16_batch_lanes(6)
+        ver = Groth16BatchVerifier(vec.vk, device="cpu")
+        call, want = (lambda: ver.verify_batch_async(proofs, inputs)), 6
+    elif path == "groth16_single":
+        vec = gen_groth16_vector(0)
+        call, want = (lambda: Groth16Verifier.verify(vec.proof, vec.vk, vec.public_inputs,
+                                                     device="cpu")), None
+    else:
+        vec, proofs, inputs, _ = plonk_batch_lanes(4, {})
+        ver = PlonkBatchVerifier(vec.vk, device="cpu")
+        call, want = (lambda: ver.verify_batch_async(proofs, inputs, rng=lambda: 7)), None
+    call()  # the VK's set-up, outside the trace
+    with profiling.trace(str(tmp_path / "trace.json")):
+        call()
+    assert profiling.snapshot()["counters"].get("bn254.pairing.prepared_lanes") == want
 
 
 def test_groth16_facade_keeps_the_vks_used_last(light, monkeypatch):
