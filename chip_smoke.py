@@ -48,9 +48,9 @@ It builds the port's CUDA kernels from csrc/, then
      1024 lanes of the synthetic BSB22 vector with bad lanes of every kind
      spread over the batch (fixtures/plonk_lanes.py), checks the exact
      bool vector, that each batch launches K7a and K7b once, K2 three
-     times, K3 once with no variable pair, K4 once and nothing else, that
-     no stage copies phase A's digests to the host, and the first 8 lanes
-     against the CPU run, and times warm batches with their stages;
+     times, K3 once with no variable pair, K4 once and nothing else, and
+     the first 8 lanes against the CPU run, and times warm batches with
+     their host stages;
      each batch path then runs PIPELINED batches through
      ``verify_batch_async``, at most two in flight, with the exact bools
      and the same launches on every batch, and prints the rate beside the
@@ -1235,6 +1235,16 @@ UNLAUNCHED = ("mont_mul",)
 PIPELINED = 8  # batches of each pipelined loop, at most two in flight (bench.py:105-116)
 
 
+def host_stages(stages, what: str) -> dict:
+    """The mean of the batches' ``stage_ms``, which on the card holds the
+    host stages alone (the device stages are the trace's), and their sum."""
+    require(all(set(s) == {"parse_ms", "pack_ms"} for s in stages),
+            f"{what}: stage_ms holds more than the host stages: {stages[0]}")
+    mean = {k: sum(s[k] for s in stages) / len(stages) for k in stages[0]}
+    mean["host_ms"] = mean["parse_ms"] + mean["pack_ms"]
+    return mean
+
+
 def pipelined(dispatch, expected, batches: int, what: str):
     """``batches`` calls of ``dispatch`` (a verify_batch_async), at most two
     in flight: the third is dispatched before the first is read, as the
@@ -1324,11 +1334,11 @@ def run_slice(batch: int, iters: int):
         stages.append(ver.last_stats.extra["stage_ms"])
         require(ok.tolist() == expected, "slice bool vector changed between runs")
     best = min(times)
-    mean_stage = {k: sum(s[k] for s in stages) / len(stages) for k in stages[0]}
-    mean_stage["host_ms"] = sum(mean_stage[k] for k in ("parse_ms", "pack_ms", "upload_ms"))
+    mean_stage = host_stages(stages, "slice")
     print(f"slice warm: {iters} runs, batch s {[round(t, 4) for t in times]}, "
           f"{batch / best:.1f} proofs/s (best), {batch * iters / sum(times):.1f} proofs/s (mean)")
-    print("slice stage ms (mean): " + json.dumps({k: round(v, 3) for k, v in mean_stage.items()}))
+    print("slice host stage ms (mean): "
+          + json.dumps({k: round(v, 3) for k, v in mean_stage.items()}))
 
     # pipelined: verify_batch_async, two batches in flight on their streams
     def dispatch():
@@ -1354,7 +1364,7 @@ def run_plonk_batch(batch: int, iters: int):
     """The PlonK batch on the card: the exact bool vector, per batch one
     launch each of K7a and K7b, three K2 launches, one fixed-only K3, one
     K4 and no other launch; the first 8 lanes equal to the CPU run; then
-    warm batches timed with their stages, and the pipelined loop."""
+    warm batches timed with their host stages, and the pipelined loop."""
     import numpy as np
 
     from snark_bn254_verifier_tpu_torch import PlonkBatchVerifier
@@ -1398,15 +1408,10 @@ def run_plonk_batch(batch: int, iters: int):
         require(PC.launch_counts() == want, "PlonK batch launches changed between runs")
         stages.append(ver.last_stats.extra["stage_ms"])
     best = min(times)
-    mean_stage = {k: sum(s[k] for s in stages) / len(stages) for k in stages[0]}
-    require("digest_copy_ms" not in mean_stage, "the PlonK batch copies its digests to the host")
-    mean_stage["host_ms"] = sum(mean_stage[k] for k in ("parse_ms", "pack_ms", "upload_ms"))
-    mean_stage["kernel_stages_ms"] = sum(mean_stage[k] for k in (
-        "lanes_a_ms", "msm_a_ms", "lanes_b_ms", "msm_b_ms", "miller_ms", "final_exp_ms",
-        "compare_ms"))
+    mean_stage = host_stages(stages, "PlonK batch")
     print(f"PlonK batch warm: {iters} runs, batch s {[round(t, 4) for t in times]}, "
           f"{batch / best:.1f} proofs/s (best), {batch * iters / sum(times):.1f} proofs/s (mean)")
-    print("PlonK batch stage ms (mean): "
+    print("PlonK batch host stage ms (mean): "
           + json.dumps({k: round(v, 3) for k, v in mean_stage.items()}))
 
     # pipelined: no wait for the card inside a batch

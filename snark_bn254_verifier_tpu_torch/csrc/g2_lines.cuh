@@ -51,7 +51,7 @@ static_assert(32 % GL_TEAM == 0, "a lane's team lies inside one warp");
 #if defined(__CUDACC__)
 #define LANE_SYNC() __syncwarp()
 #else
-#define LANE_SYNC() team_barrier->arrive_and_wait()  // a block's threads, as TEAM_SYNC
+#define LANE_SYNC() host_block_sync()  // a block's fibers, as TEAM_SYNC
 #endif
 
 enum {

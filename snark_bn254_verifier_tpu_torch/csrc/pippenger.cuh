@@ -83,8 +83,8 @@ static_assert(32 % PIP_COMB_TEAM == 0, "a combine team lies inside one warp");
 #define WARP_SYNC() __syncwarp()
 BN_INLINE uint32_t pip_atomic_add(uint32_t* p, uint32_t v) { return atomicAdd(p, v); }
 #else
-// The host build meets at the block's barrier wherever a warp meets.
-#define WARP_SYNC() team_barrier->arrive_and_wait()
+// The host build's fibers meet as a block wherever a warp meets.
+#define WARP_SYNC() host_block_sync()
 BN_INLINE uint32_t pip_atomic_add(uint32_t* p, uint32_t v) {
   return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
 }

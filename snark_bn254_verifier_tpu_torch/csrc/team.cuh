@@ -44,12 +44,11 @@
 #if defined(__CUDACC__)
 #define TEAM_SYNC() __syncthreads()
 #else
-#include <barrier>
-// The host build (host_check.cc) runs each thread of a block as a host
-// thread; they meet at this barrier where the card's threads meet at
-// __syncthreads.
-inline thread_local std::barrier<>* team_barrier = nullptr;
-#define TEAM_SYNC() team_barrier->arrive_and_wait()
+// The host build (host_check.cc) runs each thread of a block as a fiber;
+// a sync switches to the block's next fiber, so the fibers meet where the
+// card's threads meet at __syncthreads.
+void host_block_sync();
+#define TEAM_SYNC() host_block_sync()
 #endif
 
 #define NF_MAX 2                                  // fixed pairs K3 stages
@@ -244,11 +243,10 @@ enum {
   // A K5 chain's Fq2 slots:
   // the variable pair's T = (X, Y, Z) and Q, the last line (C0, C1, C3),
   // P (c0 = xP, c1 = yP), its on flag, the add step's Q operand, the
-  // Frobenius images of Q, the fixed pairs' P, the lines' products at P
-  // (team_lines), and temporaries.
+  // Frobenius images of Q, the line's products at P (team_lines), and
+  // temporaries.
   G_X, G_Y, G_Z, G_XQ, G_YQ, G_C0, G_C1, G_C3, G_P, G_ON, G_AQX, G_AQY,
-  G_Q1X, G_Q1Y, G_Q2X, G_Q2Y, G_FP, G_L = G_FP + NF_MAX, G_T0 = G_L + 2 + NF_MAX,
-  G_SLOTS = G_T0 + 16
+  G_Q1X, G_Q1Y, G_Q2X, G_Q2Y, G_L, G_T0 = G_L + 2, G_SLOTS = G_T0 + 16
 };
 // K3 per lane: its f, scratch and slots: the fixed pairs' P and their
 // lines' products at P, then the variable pair's line rows of a step (its
@@ -396,80 +394,54 @@ BN_INLINE void team_add_step(const team_t<TEAM>& t, fq2* G, int qx, int qy) {
   TEAM_SYNC();
 }
 
-// One line stage of the schedule: first the products the lines need at P,
-// one per thread (the variable line's l00 = C0 yP and l10 = C1 xP, each
-// fixed line's l10 = c1 xP_j with c1 from table row ``row``), then f times
-// each line: the variable pair's (one where the pair is off), and each
-// fixed pair's, (yP_j, c1 xP_j, c3) with c3 from row ``row3`` (one where
-// P_j is at infinity, the all-zero encoding).
+// One line stage of the schedule: the products the line needs at P, one
+// per thread (l00 = C0 yP and l10 = C1 xP), then f times the line (one
+// where the pair is off).
 template <int TEAM>
-BN_INLINE void team_lines(const team_t<TEAM>& t, fq2* f, fq2* scratch, fq2* G, const fq2* tab,
-                          bool has_var, int nf, int row, int row3) {
-  if (t.r < 2 + nf) {
-    const bool var = t.r < 2;
-    const int j = var ? 0 : t.r - 2;
-    const fq2& c = var ? G[G_C0 + t.r] : tab[j * TAB_ROWS + row];
-    const fp& s = t.r == 0 ? G[G_P].c1 : (t.r == 1 ? G[G_P].c0 : G[G_FP + j].c0);
+BN_INLINE void team_lines(const team_t<TEAM>& t, fq2* f, fq2* scratch, fq2* G) {
+  if (t.r < 2) {
     fq2 p;
-    fq2_mul_fq(p, c, s);
+    fq2_mul_fq(p, G[G_C0 + t.r], t.r == 0 ? G[G_P].c1 : G[G_P].c0);
     G[G_L + t.r] = p;
   }
   TEAM_SYNC();
-  if (has_var) {
-    fq2 l00 = G[G_L], l10 = G[G_L + 1], l11 = G[G_C3];
-    line_or_one(l00, l10, l11, G[G_ON].c0.w[0] != 0);
-    team_mul_line(t, f, scratch, l00, l10, l11);
-  }
-  for (int j = 0; j < nf; ++j) {
-    const fq2& pj = G[G_FP + j];
-    fq2 l00, l10 = G[G_L + 2 + j], l11 = tab[j * TAB_ROWS + row3];
-    l00.c0 = pj.c1;
-    fp_zero(l00.c1);
-    line_or_one(l00, l10, l11, !(fp_is_zero(pj.c0) && fp_is_zero(pj.c1)));
-    team_mul_line(t, f, scratch, l00, l10, l11);
-  }
+  fq2 l00 = G[G_L], l10 = G[G_L + 1], l11 = G[G_C3];
+  line_or_one(l00, l10, l11, G[G_ON].c0.w[0] != 0);
+  team_mul_line(t, f, scratch, l00, l10, l11);
 }
 
 // ---------------------------------------------------- the Miller schedule
 
 // The Miller schedule of f_{6x+2,Q}(P) with its two Frobenius lines, for
-// the variable pair in G (if has_var) and nf fixed pairs (P in G, lines
-// in tab) on one f chain: f = f * their Miller values. In exact
-// arithmetic the shared chain equals the product of the separate loops,
-// and every value is fully reduced, so f is limb-equal to the plain twins.
-// has_var and nf are the same on every thread of the block.
+// the variable pair in G, on one f chain: f = f * its Miller value. Every
+// value is fully reduced, so f is limb-equal to the plain twins.
 template <int TEAM>
-BN_INLINE void team_miller(const team_t<TEAM>& t, fq2* f, fq2* scratch, fq2* G, bool has_var,
-                           const fq2* tab, int nf) {
-  // table rows per fixed pair: dbl c1, dbl c3, add c1, add c3 (STEPS
-  // each), then the tails' c1 (2) and c3 (2)
-  const int S = BN_MILLER_STEPS;
+BN_INLINE void team_miller(const team_t<TEAM>& t, fq2* f, fq2* scratch, fq2* G) {
 #pragma unroll 1
-  for (int i = 0; i < S; ++i) {
+  for (int i = 0; i < BN_MILLER_STEPS; ++i) {
     team_mul(t, f, f, f, scratch);
-    if (has_var) team_dbl_step(t, G);
-    team_lines(t, f, scratch, G, tab, has_var, nf, i, S + i);
+    team_dbl_step(t, G);
+    team_lines(t, f, scratch, G);
     if (!MILLER_BITS[i]) continue;
-    if (has_var) team_add_step(t, G, G_XQ, G_YQ);
-    team_lines(t, f, scratch, G, tab, has_var, nf, 2 * S + i, 3 * S + i);
+    team_add_step(t, G, G_XQ, G_YQ);
+    team_lines(t, f, scratch, G);
   }
-  if (has_var) {  // Frobenius images of Q: q1 = pi(Q), q2 = -pi^2(Q)
-    if (t.lead) {
-      load_fq2_const(G[T_(0)], &TWIST_FROB[0]);
-      load_fq2_const(G[T_(1)], &TWIST_FROB[2 * NW]);
-      load_fq2_const(G[T_(2)], &TWIST_FROB[4 * NW]);
-      load_fq2_const(G[T_(3)], &TWIST_FROB[6 * NW]);
-      fq2_conj(G[T_(4)], G[G_XQ]);
-      fq2_conj(G[T_(5)], G[G_YQ]);
-    }
-    TEAM_SYNC();
-    team_products(t, G, FROB_OPS, 4);
-    if (t.lead) fq2_neg(G[G_Q2Y], G[G_Q2Y]);
-    TEAM_SYNC();
+  // Frobenius images of Q: q1 = pi(Q), q2 = -pi^2(Q)
+  if (t.lead) {
+    load_fq2_const(G[T_(0)], &TWIST_FROB[0]);
+    load_fq2_const(G[T_(1)], &TWIST_FROB[2 * NW]);
+    load_fq2_const(G[T_(2)], &TWIST_FROB[4 * NW]);
+    load_fq2_const(G[T_(3)], &TWIST_FROB[6 * NW]);
+    fq2_conj(G[T_(4)], G[G_XQ]);
+    fq2_conj(G[T_(5)], G[G_YQ]);
   }
-  for (int k = 0; k < 2; ++k) {  // the correction lines, with the tails
-    if (has_var) team_add_step(t, G, k ? G_Q2X : G_Q1X, k ? G_Q2Y : G_Q1Y);
-    team_lines(t, f, scratch, G, tab, has_var, nf, 4 * S + k, 4 * S + 2 + k);
+  TEAM_SYNC();
+  team_products(t, G, FROB_OPS, 4);
+  if (t.lead) fq2_neg(G[G_Q2Y], G[G_Q2Y]);
+  TEAM_SYNC();
+  for (int k = 0; k < 2; ++k) {  // the correction lines
+    team_add_step(t, G, k ? G_Q2X : G_Q1X, k ? G_Q2Y : G_Q1Y);
+    team_lines(t, f, scratch, G);
   }
 }
 
@@ -659,7 +631,7 @@ BN_INLINE void miller_product_team(int tid, long long block, uint32_t* smem, con
     }
     team_set_one(t, f);
     TEAM_SYNC();
-    team_miller(t, f, scratch, G, true, nullptr, 0);
+    team_miller(t, f, scratch, G);
     team_mul(t, g, f, base + (chain ^ 1) * MP_CHAIN_FQ2, scratch);
     team_mul(t, f, g, base + (chain ^ 2) * MP_CHAIN_FQ2 + 6, scratch);
     if (first)

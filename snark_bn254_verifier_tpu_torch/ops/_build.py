@@ -297,7 +297,7 @@ def load_host_check(rolled: bool = False) -> ctypes.CDLL:
     src = CSRC / "host_check.cc"
     inputs = [src, consts] + sorted(CSRC.glob("*.cuh"))
     if _stale(lib_path, inputs):
-        _compile([cxx, "-O1", "-std=c++20", "-pthread", "-shared", "-fPIC",
+        _compile([cxx, "-O1", "-std=c++20", "-shared", "-fPIC",
                   f"-DBN_ROLLED_CIOS={int(rolled)}",
                   "-I", str(build_dir), "-I", str(CSRC), str(src)], lib_path)
     lib = ctypes.CDLL(str(lib_path))

@@ -112,65 +112,30 @@ IN_FLIGHT = 2  # CUDA streams a verifier cycles through, one a batch in flight
 _ALIGN = 16  # bytes between staged arrays: every dtype's view stays aligned
 
 
-def _event() -> torch.cuda.Event:
-    """A timing event recorded on the current stream."""
-    ev = torch.cuda.Event(enable_timing=True)
-    ev.record()
-    return ev
-
-
 class _Stages:
-    """Stage times of one batch, taken without waiting for the card: a
-    host stage is a ``perf_counter`` lap (``host``); a device stage
-    (``device``), on CUDA, the time between two events on the batch's
-    stream, from the last device stage or ``begin``, where ``events`` asks
-    for them (else it is not timed); on the CPU every stage is a host lap.
-    Host time spent queueing device work is no stage. ``ms()`` reads the
-    events, so only after the batch's end."""
+    """Stage times of one batch, as ``perf_counter`` laps: a host stage
+    (``host``) always; a device stage (``device``) on the CPU alone, where
+    the twins run synchronously. On CUDA a device stage is not timed, and
+    the host time spent queueing device work is no stage."""
 
-    def __init__(self, device: torch.device, events: bool):
+    def __init__(self, device: torch.device):
         self.cpu = device.type != "cuda"
-        self.events = events and not self.cpu
         self.start = self.t = time.perf_counter()
-        self.total = {}  # stage -> host ms so far
-        self.spans = []  # (stage, start event, end event)
-        self.last = None
+        self.ms = {}  # stage -> host ms so far
 
     def host(self, stage: str) -> None:
         now = time.perf_counter()
-        self.total[stage] = self.total.get(stage, 0.0) + (now - self.t) * 1e3
+        self.ms[stage] = self.ms.get(stage, 0.0) + (now - self.t) * 1e3
         self.t = now
 
     def resume(self) -> None:
         """Start the next host lap now (after a wait for the card)."""
         self.t = time.perf_counter()
 
-    def begin(self) -> None:
-        if self.events:
-            self.last = _event()
-        self.resume()
-
     def device(self, stage: str) -> None:
         if self.cpu:
             return self.host(stage)
-        if self.events:
-            ev = _event()
-            self.spans.append((stage, self.last, ev))
-            self.total.setdefault(stage, 0.0)
-            self.last = ev
         self.resume()
-
-    def ms(self) -> dict:
-        out = dict(self.total)
-        for stage, a, b in self.spans:
-            out[stage] += a.elapsed_time(b)
-        return out
-
-    def host_ms(self) -> dict:
-        """The stages that need no wait for the card: the host laps (on
-        the CPU every stage)."""
-        on_card = {stage for stage, _, _ in self.spans}
-        return {k: v for k, v in self.total.items() if k not in on_card}
 
     def elapsed_s(self) -> float:
         return time.perf_counter() - self.start
@@ -255,14 +220,12 @@ class _Run:
 
     def on_host(self) -> np.ndarray:
         """The bools on the host: one copy (into a pinned buffer, on the
-        batch's stream, booked to ``compare_ms``), then a wait for the
-        batch's end."""
+        batch's stream), then a wait for the batch's end."""
         if self.slot is None:
             return self.ok.cpu().numpy()
         with torch.cuda.stream(self.slot.stream):
             host = torch.empty(self.ok.shape, dtype=torch.bool, pin_memory=True)
             host.copy_(self.ok, non_blocking=True)
-            self.stages.device("compare_ms")
         self.slot.mark_end().synchronize()
         return host.numpy()
 
@@ -350,14 +313,74 @@ def _plain(x):
 
 
 class _Flights:
-    """What both batch verifiers share: the host->device copies and the
-    streams of the batches in flight."""
+    """What both batch verifiers share: the public calls, their stats, the
+    host->device copies and the streams of the batches in flight. A
+    verifier names its ``PROTOCOL`` and ``PAIRINGS_PER_PROOF`` and gives
+    its constructor, ``_vk_tensors`` and ``_dispatch``."""
 
+    PROTOCOL: str
+    PAIRINGS_PER_PROOF: int
     device: torch.device
 
     def _init_flights(self) -> None:
         self._ring = _Ring(self.device) if self.device.type == "cuda" else None
         self._vk_ready = False
+        self.last_stats: Optional[RunStats] = None
+
+    def verify_batch(self, proofs: Sequence[bytes], public_inputs: Sequence[Sequence[int]],
+                     rng=None) -> np.ndarray:
+        """One bool per proof: True where the proof verifies.
+        ``verify_batch_async`` plus one copy to the host; fills
+        ``last_stats`` (``extra["stage_ms"]``: the stages by host laps,
+        the host stages alone on CUDA, every stage on the CPU;
+        ``extra["host_s"]``: the host stages' seconds).
+
+        PlonK's ``rng`` draws the KZG randomisers (a callable returning a
+        nonzero Fr int), by default from ``secrets``: one a lane that
+        passes the host's byte checks, in lane order, before any device
+        stage (the JAX package draws after its host pass, for the lanes
+        still alive; the bools do not depend on the draws). A Groth16
+        batch draws none."""
+        with span("bn254.batch.dispatch"):
+            run = self._dispatch(proofs, public_inputs, rng, hand_over=False)
+            ok = run.on_host()
+            self.last_stats = self._stats(run, len(proofs), int(ok.sum()))
+            return ok
+
+    def verify_batch_async(self, proofs: Sequence[bytes],
+                           public_inputs: Sequence[Sequence[int]], rng=None) -> torch.Tensor:
+        """The (B,) bool tensor of ``verify_batch`` on the verifier's
+        device, returned without waiting for the card: on CUDA the batch
+        (for PlonK both phases and the lane passes between them) runs on a
+        stream of its own and the tensor is a ``HandedOver``, usable on
+        any stream with no extra call (``.cpu()``, ``.tolist()``, any op),
+        its first use on a stream waiting there for this batch alone; on
+        the CPU a plain tensor. Fills ``last_stats`` with what is known
+        without that wait: the host stages, ``elapsed_s`` the call's host
+        time, ``n_valid`` None."""
+        with span("bn254.batch.dispatch"):
+            run = self._dispatch(proofs, public_inputs, rng, hand_over=True)
+            self.last_stats = self._stats(run, len(proofs), None)
+            return run.out
+
+    def _stats(self, run: _Run, b: int, n_valid: Optional[int]) -> RunStats:
+        ms = run.stages.ms
+        return RunStats(
+            protocol=self.PROTOCOL,
+            batch_size=b,
+            n_chips=1,
+            elapsed_s=run.stages.elapsed_s(),
+            n_valid=n_valid,
+            pairings_per_proof=self.PAIRINGS_PER_PROOF,
+            extra={"device": str(self.device), **run.extra, "packer": packer(),
+                   "stage_ms": ms,
+                   "host_s": sum(ms.get(k, 0.0) for k in ("parse_ms", "pack_ms")) / 1e3},
+        )
+
+    def _dispatch(self, proofs, public_inputs, rng, hand_over: bool) -> _Run:
+        """Queue the batch's stages; ``hand_over`` asks for the bools in
+        ``_Run.out``."""
+        raise NotImplementedError
 
     def _to_dev(self, arr) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(arr), device=self.device)
@@ -427,6 +450,9 @@ def _count_lanes(b: int, valid: np.ndarray, parser: str = "native") -> None:
 class Groth16BatchVerifier(_Flights):
     """VK-specialised batched Groth16 verifier on one torch device."""
 
+    PROTOCOL = "groth16"
+    PAIRINGS_PER_PROOF = 3  # e(A,B) e(L,gamma) e(C,-delta) vs e(alpha,beta)
+
     def __init__(self, vk_bytes: bytes, device="cuda"):
         self.device = resolve_device(device)
         self.vk = ser.load_groth16_verifying_key_from_bytes(vk_bytes)
@@ -442,7 +468,6 @@ class Groth16BatchVerifier(_Flights):
                 tuple(torch.as_tensor(a, device=self.device) for a in pack_g1(self.vk.k)))
         else:
             self._k_points = _fixed_points(self.vk.k, self.device)
-        self.last_stats: Optional[RunStats] = None
         self._init_flights()
 
     def line_tables(self):
@@ -465,54 +490,13 @@ class Groth16BatchVerifier(_Flights):
         self.line_tables()
         self.alpha_beta()
 
-    def verify_batch(self, proofs: Sequence[bytes],
-                     public_inputs: Sequence[Sequence[int]]) -> np.ndarray:
-        """One bool per proof: True where the proof verifies.
-        ``verify_batch_async`` plus one copy to the host; fills
-        ``last_stats`` (``extra["stage_ms"]``: host stages by host laps,
-        device stages by CUDA events on CUDA; ``extra["host_s"]``: the
-        host stages' seconds)."""
-        with span("bn254.batch.dispatch"):
-            run = self._dispatch(proofs, public_inputs, hand_over=False)
-            ok = run.on_host()
-            self.last_stats = self._stats(run, len(proofs), int(ok.sum()), run.stages.ms())
-            return ok
-
-    def verify_batch_async(self, proofs: Sequence[bytes],
-                           public_inputs: Sequence[Sequence[int]]) -> torch.Tensor:
-        """The (B,) bool tensor of ``verify_batch`` on the verifier's
-        device, returned without waiting for the card: on CUDA the batch
-        runs on a stream of its own and the tensor is a ``HandedOver``,
-        usable on any stream with no extra call (``.cpu()``, ``.tolist()``,
-        any op), its first use on a stream waiting there for this batch
-        alone; on the CPU a plain tensor. Fills ``last_stats`` with what is
-        known without that wait: the host stages, ``elapsed_s`` the call's
-        host time, ``n_valid`` None."""
-        with span("bn254.batch.dispatch"):
-            run = self._dispatch(proofs, public_inputs, hand_over=True)
-            self.last_stats = self._stats(run, len(proofs), None, run.stages.host_ms())
-            return run.out
-
-    def _stats(self, run: _Run, b: int, n_valid: Optional[int], ms: dict) -> RunStats:
-        return RunStats(
-            protocol="groth16",
-            batch_size=b,
-            n_chips=1,
-            elapsed_s=run.stages.elapsed_s(),
-            n_valid=n_valid,
-            pairings_per_proof=3,  # e(A,B) e(L,gamma) e(C,-delta) vs e(alpha,beta)
-            extra={"device": str(self.device), **run.extra, "packer": packer(),
-                   "stage_ms": ms,
-                   "host_s": sum(ms.get(k, 0.0) for k in ("parse_ms", "pack_ms")) / 1e3},
-        )
-
     def _dispatch(self, proofs: Sequence[bytes], public_inputs: Sequence[Sequence[int]],
-                  hand_over: bool) -> _Run:
+                  rng, hand_over: bool) -> _Run:
         b = len(proofs)
         if len(public_inputs) != b:
             raise ValueError("one public-input list per proof")
         with span("bn254.batch.parse"):
-            stages = _Stages(self.device, events=not hand_over)
+            stages = _Stages(self.device)
             parsed = self._parse_native(proofs)
             parser = "native" if parsed is not None else "python"
             ar, bs, krs, valid = parsed if parsed is not None else self._parse_python(proofs)
@@ -534,7 +518,7 @@ class Groth16BatchVerifier(_Flights):
         slot, stream = self._flight()
         with stream:
             with span("bn254.batch.upload"):
-                stages.begin()
+                stages.resume()
                 sc, valid, *flat = self._upload(slot, sc, valid, *ar, *bs, *krs)
             with span("bn254.batch.launch"):
                 ar, bs, krs = tuple(flat[:3]), tuple(flat[3:6]), tuple(flat[6:])
@@ -636,6 +620,9 @@ class PlonkBatchVerifier(_Flights):
     """VK-specialised batched PlonK verifier on one torch device (gnark
     semantics, BSB22 commitments included; a bad lane is masked False)."""
 
+    PROTOCOL = "plonk"
+    PAIRINGS_PER_PROOF = 2  # the KZG two-pair batch check (kzg.rs:180-186)
+
     def __init__(self, vk_bytes: bytes, device="cuda"):
         self.device = resolve_device(device)
         self.vk = ser.load_plonk_verifying_key_from_bytes(vk_bytes)
@@ -663,7 +650,6 @@ class PlonkBatchVerifier(_Flights):
                                 "z", "g1", "hb", "hs")
         self._quot = rows("hb", "hs")
         self._tables = None  # KZG ([1]_2, [x]_2) Miller line tables, lazy
-        self.last_stats: Optional[RunStats] = None
         self._init_flights()
 
     def _vk_tensors(self) -> None:
@@ -678,35 +664,6 @@ class PlonkBatchVerifier(_Flights):
             self._tables = LN.tables_from_numpy(tabs, self.device)
         return self._tables
 
-    def verify_batch(self, proofs: Sequence[bytes], public_inputs: Sequence[Sequence[int]],
-                     rng=None) -> np.ndarray:
-        """One bool per proof: True where the proof verifies. ``rng`` draws
-        the KZG randomisers (a callable returning a nonzero Fr int), by
-        default from ``secrets``: one a lane that passes the host's byte
-        checks, in lane order, before any device stage (the JAX package
-        draws after its host pass, for the lanes still alive; the bools do
-        not depend on the draws). ``verify_batch_async`` plus one copy to
-        the host; fills ``last_stats`` (stage times as Groth16's)."""
-        with span("bn254.batch.dispatch"):
-            run = self._dispatch(proofs, public_inputs, rng, hand_over=False)
-            ok = run.on_host()
-            self.last_stats = self._stats(len(proofs), int(ok.sum()), run.stages,
-                                          run.stages.ms())
-            return ok
-
-    def verify_batch_async(self, proofs: Sequence[bytes],
-                           public_inputs: Sequence[Sequence[int]], rng=None) -> torch.Tensor:
-        """The (B,) bool tensor of ``verify_batch`` on the verifier's
-        device, returned without waiting for the card: both phases and
-        the lane passes between them stay in flight on the batch's stream,
-        and the tensor is handed over as Groth16's is (a ``HandedOver`` on
-        CUDA: its first use on a stream waits there for this batch alone).
-        Fills ``last_stats`` as Groth16's does."""
-        with span("bn254.batch.dispatch"):
-            run = self._dispatch(proofs, public_inputs, rng, hand_over=True)
-            self.last_stats = self._stats(len(proofs), None, run.stages, run.stages.host_ms())
-            return run.out
-
     def _dispatch(self, proofs: Sequence[bytes], public_inputs: Sequence[Sequence[int]],
                   rng, hand_over: bool) -> _Run:
         lvk = self._lanes_vk
@@ -714,7 +671,7 @@ class PlonkBatchVerifier(_Flights):
         if len(public_inputs) != b:
             raise ValueError("one public-input list per proof")
         with span("bn254.batch.parse"):
-            stages = _Stages(self.device, events=not hand_over)
+            stages = _Stages(self.device)
             raw, valid = PL.pack_proofs(proofs, lvk)
             counted = np.fromiter((len(ins) == lvk.nb_pub for ins in public_inputs),
                                   dtype=bool, count=b)
@@ -735,7 +692,7 @@ class PlonkBatchVerifier(_Flights):
         slot, stream = self._flight()
         with stream:
             with span("bn254.batch.upload"):
-                stages.begin()
+                stages.resume()
                 raw, pub, rand, valid = self._upload(slot, raw, pub, rand, valid)
             with span("bn254.batch.launch"):
                 lines, tails = self._kzg_tables()
@@ -757,15 +714,3 @@ class PlonkBatchVerifier(_Flights):
                 ok = _plonk_final(take, self._combo_rest, self._quot, digest, sc, lines,
                                   tails, self._one, valid, stages.device)
                 return _Run(ok, stages, slot, hand_over=hand_over)
-
-    def _stats(self, b: int, n_valid: Optional[int], stages: _Stages, ms: dict) -> RunStats:
-        return RunStats(
-            protocol="plonk",
-            batch_size=b,
-            n_chips=1,
-            elapsed_s=stages.elapsed_s(),
-            n_valid=n_valid,
-            pairings_per_proof=2,  # the KZG two-pair batch check (kzg.rs:180-186)
-            extra={"device": str(self.device), "packer": packer(), "stage_ms": ms,
-                   "host_s": sum(ms.get(k, 0.0) for k in ("parse_ms", "pack_ms")) / 1e3},
-        )

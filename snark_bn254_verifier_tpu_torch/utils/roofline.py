@@ -21,7 +21,7 @@ fallback, as the JAX package's selects pay them), and a Fermat
 ``groth16_mults_per_proof(2)`` reads 50,866 here as there. These totals
 count more than the card computes on real data (the twins, and the
 kernels after them, skip the zero bits and the doubling branch where no
-lane needs it). What a lane computes is ``lane_mults`` (37,987 for the
+lane needs it). What a lane computes is ``lane_mults`` (34,013 for the
 bench's Groth16 proof), counted as the kernel bounds (``count_fp_muls``,
 ``bound``) count: the card's share of its peak is
 ``pct_imad_roofline_computed``, and ``pct_imad_roofline`` keeps the JAX

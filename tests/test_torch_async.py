@@ -13,16 +13,7 @@ import torch
 from snark_bn254_verifier_tpu_torch import Groth16BatchVerifier, PlonkBatchVerifier
 from snark_bn254_verifier_tpu_torch.fixtures.groth16_lanes import groth16_batch_lanes
 from snark_bn254_verifier_tpu_torch.fixtures.plonk_lanes import plonk_batch_lanes
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The plain twins' tensors are a few lanes wide, too narrow for torch's
-    threads; one thread keeps parallel test workers off each other's cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_host_build import one_torch_thread  # noqa: F401 (autouse)
 
 
 def rolled(lanes, k):

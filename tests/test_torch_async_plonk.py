@@ -15,16 +15,7 @@ import torch
 from snark_bn254_verifier_tpu_torch import PlonkBatchVerifier
 from snark_bn254_verifier_tpu_torch.fixtures.plonk_lanes import KINDS, plonk_batch_lanes
 from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The plain twins' tensors are a few lanes wide, too narrow for torch's
-    threads; one thread keeps parallel test workers off each other's cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_host_build import one_torch_thread  # noqa: F401 (autouse)
 
 
 def seeded_rng(seed):

@@ -13,6 +13,7 @@ import torch
 from snark_bn254_verifier_tpu.models.backend import OracleBackend, get_backend
 from snark_bn254_verifier_tpu.oracle import bn254 as bn
 from snark_bn254_verifier_tpu_torch import TorchBackend
+from torch_host_build import one_torch_thread  # noqa: F401 (autouse)
 
 ORACLE = OracleBackend()
 

@@ -10,6 +10,7 @@ import torch
 
 from snark_bn254_verifier_tpu.fixtures.gen import gen_groth16_vector
 from snark_bn254_verifier_tpu_torch import Groth16BatchVerifier
+from torch_host_build import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

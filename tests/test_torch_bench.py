@@ -18,6 +18,7 @@ import torch
 
 from snark_bn254_verifier_tpu_torch import KERNEL_ENTRY_POINTS, bench
 from snark_bn254_verifier_tpu_torch.parallel import batch
+from torch_host_build import one_torch_thread  # noqa: F401 (autouse)
 
 # The JAX bench's metric names (bench.py:124,174,295,347,221,241,574), and
 # kernel_validation in the place of its pallas_validation preflight (:518).
@@ -45,14 +46,6 @@ FIELDS = {
     "plonk_single": {"value", "unit", "iters", "vector"},
     "kernel_validation": {"value", "unit", "stages"},
 }
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def run_bench(capsys, *args):

@@ -18,6 +18,7 @@ from snark_bn254_verifier_tpu_torch.models.packing import pack_g1, pack_g2, unpa
 from snark_bn254_verifier_tpu_torch.ops import curve as C
 from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
 from snark_bn254_verifier_tpu_torch.ops.limbs import FR
+from torch_host_build import one_torch_thread  # noqa: F401 (autouse)
 
 
 def tensors(tup):

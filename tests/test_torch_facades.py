@@ -21,6 +21,7 @@ from snark_bn254_verifier_tpu.utils import errors
 from snark_bn254_verifier_tpu.utils import serialization as ser
 from snark_bn254_verifier_tpu_torch import Groth16Verifier, PlonkVerifier
 from snark_bn254_verifier_tpu_torch.utils import errors as port_errors
+from torch_host_build import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -13,6 +13,7 @@ from snark_bn254_verifier_tpu.ops import field as JF
 from snark_bn254_verifier_tpu_torch.ops import field as F
 from snark_bn254_verifier_tpu_torch.ops import field_cuda as FC
 from snark_bn254_verifier_tpu_torch.ops.limbs import FQ, FR, limbs_batch_to_ints
+from torch_host_build import one_torch_thread  # noqa: F401 (autouse)
 
 B = 8
 

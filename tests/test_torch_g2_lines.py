@@ -1,10 +1,10 @@
 """g2_lines, the variable pair's line rows of the Groth16 batch's Miller
-product, and K3 over them, built for the host (csrc/host_check.cc, one
-host thread per team thread at a std::barrier; tests/torch_host_build.py)
+product, and K3 over them, built for the host (csrc/host_check.cc, each
+thread of a block a fiber; tests/torch_host_build.py)
 and held to the plain twins of ops/pairing.py: g2_lines' team against
 ``var_line_rows``, which records the twin's own tangent and chord lines,
-and K3, which runs no G2 step, against ``miller_mixed``. Apart from
-tests/test_torch_csrc_host.py so that a second test worker takes them.
+and K3, which runs no G2 step, against ``miller_mixed``. A file of its
+own, as each unit's host build, so that test workers share them.
 Skips where no host C++ compiler is installed."""
 
 import random
@@ -17,19 +17,14 @@ from snark_bn254_verifier_tpu_torch.ops import lines as LN
 from snark_bn254_verifier_tpu_torch.ops import pairing as PR
 from snark_bn254_verifier_tpu_torch.ops.limbs import FQ
 from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
-from torch_host_build import c_tensor, host_check, host_miller_mixed, host_var_rows
-
-
-@pytest.fixture(scope="module")
-def lib():
-    """Built with the unrolled Montgomery product, K3's."""
-    return host_check(False)
-
-
-@pytest.fixture(scope="module")
-def lib_rolled():
-    """Built with the rolled Montgomery product, g2_lines'."""
-    return host_check(True)
+from torch_host_build import (  # noqa: F401 (one_torch_thread: autouse)
+    c_tensor,
+    host_miller_mixed,
+    host_var_rows,
+    lib,
+    lib_rolled,
+    one_torch_thread,
+)
 
 
 @pytest.mark.parametrize("n", [3, 17])

@@ -81,8 +81,10 @@ def test_g2_lines_is_a_unit_of_its_own_and_k5_keeps_its_g2_steps():
     k3 = team[team.index("BN_INLINE void miller_mixed_team("):team.index("// ---", team.index(
         "BN_INLINE void miller_mixed_team("))]
     k5 = team[team.index("BN_INLINE void miller_product_team("):]
+    miller = team[team.index("BN_INLINE void team_miller("):team.index("BN_INLINE void var_pair_put(")]
     assert "team_dbl_step" not in k3 and "team_miller(" not in k3 and "mm_fetch_rows" in k3
-    assert "team_miller(t, f, scratch, G, true, nullptr, 0)" in k5
+    assert "team_miller(t, f, scratch, G)" in k5
+    assert "team_dbl_step(t, G)" in miller and "team_add_step(t, G, G_XQ, G_YQ)" in miller
 
 
 def test_msm_fixed_is_a_unit_of_its_own():

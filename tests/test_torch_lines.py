@@ -10,6 +10,7 @@ import torch
 from snark_bn254_verifier_tpu.oracle import bn254 as bn
 from snark_bn254_verifier_tpu.ops import lines as JLN
 from snark_bn254_verifier_tpu_torch.ops import lines as LN
+from torch_host_build import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_line_table_equals_jax_limb_for_limb():

@@ -26,16 +26,7 @@ from snark_bn254_verifier_tpu_torch.ops import msm as M
 from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
 from snark_bn254_verifier_tpu_torch.ops.limbs import FQ, FR
 from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The plain twins' tensors are a few lanes wide, too narrow for torch's
-    threads; one thread keeps parallel test workers off each other's cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_host_build import one_torch_thread  # noqa: F401 (autouse)
 
 
 def msm_lanes(seed, n, b):

@@ -28,6 +28,7 @@ from snark_bn254_verifier_tpu_torch.models.packing import (
 )
 from snark_bn254_verifier_tpu_torch.ops import lines as LN
 from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
+from torch_host_build import one_torch_thread  # noqa: F401 (autouse)
 
 
 def case(seed, b, with_var):

@@ -28,6 +28,7 @@ from snark_bn254_verifier_tpu_torch.ops.limbs import FQ, FR
 from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
 from snark_bn254_verifier_tpu_torch.utils import errors
 from snark_bn254_verifier_tpu_torch.utils import serialization as ser
+from torch_host_build import one_torch_thread  # noqa: F401 (autouse)
 
 # lanes 0 and 8 good; around them every kind the device or the host
 # rejects but the wrong input count (which test_all_bad_lanes_stay_on_the_host
@@ -35,16 +36,6 @@ from snark_bn254_verifier_tpu_torch.utils import serialization as ser
 BAD = {1: "wrong_value", 2: "claimed0", 3: "truncated", 4: "other_statement",
        5: "opening_doubled", 6: "shifted_doubled", 7: "extra_claimed", 9: "noncanonical_x",
        10: "claimed_ge_r", 11: "off_curve"}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The twins' tensors are a few lanes wide, too narrow for torch's
-    threads; one thread keeps parallel test workers off each other's cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def seeded_rng(seed):

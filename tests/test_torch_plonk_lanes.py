@@ -29,19 +29,12 @@ from snark_bn254_verifier_tpu_torch.ops import plonk_lanes as PL
 from snark_bn254_verifier_tpu_torch.ops.limbs import FQ, FR
 from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
 from snark_bn254_verifier_tpu_torch.utils import serialization as ser
+from torch_host_build import one_torch_thread  # noqa: F401 (autouse)
 
 R = bn.R
 # lane 0 and the last good, every kind between them
 BAD = {1 + k: kind for k, kind in enumerate(KINDS)}
 B = len(KINDS) + 2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -18,21 +18,12 @@ from snark_bn254_verifier_tpu.utils import roofline as JR
 from snark_bn254_verifier_tpu_torch.ops.limbs import FR
 from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
 from snark_bn254_verifier_tpu_torch.utils import roofline as PR
+from torch_host_build import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 LEAVES = ("miller_step", "miller_tail", "var_dbl_line", "var_add_line", "fixed_line",
           "fe_easy", "fq12_mul", "fq12_sq", "fq12_cyc_sq", "frobenius", "jac_double",
           "jac_add_mixed", "jac_add_full", "to_affine")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The twins' B = 1 tensors are too narrow for torch's threads; one
-    thread keeps parallel test workers off each other's cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def test_leaf_keys_equal():

@@ -17,18 +17,11 @@ from snark_bn254_verifier_tpu.utils.hash_to_field import WrappedHashToField, has
 from snark_bn254_verifier_tpu_torch.ops import plonk_lanes as PL
 from snark_bn254_verifier_tpu_torch.ops.limbs import FR
 from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
+from torch_host_build import one_torch_thread  # noqa: F401 (autouse)
 
 # both sides of every block edge: a message of 55 bytes pads into one
 # block, 56 into two; 119 and 120 the same a block later
 LENGTHS = [0, 1, 55, 56, 63, 64, 65, 119, 120, 127, 128, 200]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def messages(n: int, lanes: int = 3, seed: int = 0) -> np.ndarray:

@@ -32,6 +32,7 @@ from snark_bn254_verifier_tpu_torch.ops import pairing as PR
 from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
 from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
 from snark_bn254_verifier_tpu_torch.utils import errors, profiling
+from torch_host_build import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 BATCH_SPANS = {"bn254.batch.dispatch": None,

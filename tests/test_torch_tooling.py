@@ -32,14 +32,7 @@ from snark_bn254_verifier_tpu_torch.oracle import bn254 as bn
 from snark_bn254_verifier_tpu_torch.ops import pairing as P
 from snark_bn254_verifier_tpu_torch.ops import pairing_cuda as PC
 from snark_bn254_verifier_tpu_torch.utils import config, profiling
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_host_build import one_torch_thread  # noqa: F401 (autouse)
 
 
 # --- utils/profiling.py ------------------------------------------------------

@@ -13,6 +13,7 @@ from snark_bn254_verifier_tpu.oracle import bn254 as bn
 from snark_bn254_verifier_tpu.ops import tower as JT
 from snark_bn254_verifier_tpu_torch.models.packing import pack_fq12, unpack_fq12
 from snark_bn254_verifier_tpu_torch.ops import tower as T
+from torch_host_build import one_torch_thread  # noqa: F401 (autouse)
 
 B = 4
 

@@ -1,7 +1,10 @@
-"""The host build of the kernels' headers (csrc/host_check.cc, built by
-ops/_build.py::load_host_check) and the calls of it that more than one
-test file makes: g2_lines' rows and K3 over them, as the wrappers of
-ops/pairing_cuda.py run them on the card."""
+"""What the port's test files share: the fixture that runs the plain twins
+on one torch thread, the host build of the kernels' headers
+(csrc/host_check.cc, built by ops/_build.py::load_host_check) in both
+forms of the Montgomery product (the ``lib`` and ``lib_rolled``
+fixtures), the calls of it that more than one test file makes (g2_lines'
+rows and K3 over them, as the wrappers of ops/pairing_cuda.py run them on
+the card), and the MSM's edge lanes that K2's and K6's host tests share."""
 
 import shutil
 
@@ -9,7 +12,19 @@ import numpy as np
 import pytest
 import torch
 
+from snark_bn254_verifier_tpu.oracle import bn254 as bn
 from snark_bn254_verifier_tpu_torch.ops import lines as LN
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The plain twins' tensors are a few lanes wide, too narrow for torch's
+    threads; one thread keeps parallel test workers off each other's cores.
+    Autouse in every test file that imports it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def host_check(rolled):
@@ -20,6 +35,18 @@ def host_check(rolled):
     from snark_bn254_verifier_tpu_torch.ops import _build
 
     return _build.load_host_check(rolled)
+
+
+@pytest.fixture(scope="module")
+def lib():
+    """Built with the unrolled Montgomery product, K1's, K3's and K4's."""
+    return host_check(False)
+
+
+@pytest.fixture(scope="module")
+def lib_rolled():
+    """Built with the rolled Montgomery product, K2's, K5's and g2_lines'."""
+    return host_check(True)
 
 
 def ptr(t):
@@ -59,3 +86,21 @@ def host_miller_mixed(lib, var_p, var_q, fixed, lines, tails):
     assert lib.host_miller_mixed(ptr(rows) if rows is not None else None, ptr(fpx), ptr(fpy),
                                  len(fixed), ptr(lines), ptr(tails), ptr(f), n) == 0
     return f
+
+
+def msm_edge_lanes(rng, n, b):
+    """n points over b lanes with random scalars and, where n allows, the
+    edge lanes of chip_smoke.py: 0 zero scalars, 1 an infinite point, 2
+    scalar r - 1, 3 one point thrice (the sums double), 4 P + (-P)."""
+    pool = [bn.g1_mul(bn.G1_GEN, rng.randrange(1, bn.R)) for _ in range(5)]
+    lanes = [[pool[(i + j) % 5] for i in range(b)] for j in range(n)]
+    scal = [[rng.randrange(bn.R) for _ in range(b)] for _ in range(n)]
+    for j in range(n):
+        scal[j][0] = 0
+    lanes[n - 1][1] = None
+    scal[0][2] = bn.R - 1
+    for j in range(1, min(n, 3)):
+        lanes[j][3], scal[j][3] = lanes[0][3], scal[0][3]
+    if n >= 2:
+        lanes[1][4], scal[1][4] = bn.g1_neg(lanes[0][4]), scal[0][4]
+    return lanes, scal
